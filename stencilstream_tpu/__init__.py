@@ -1,12 +1,12 @@
-"""stencilstream_tpu — a TPU-native framework for iterative 2D stencil
-simulations, with the capabilities of pc2/StencilStream redesigned for
-JAX/XLA/Pallas.
+"""stencilstream_tpu — a framework for iterative 2D stencil simulations on
+GPUs (and any JAX device), with the capabilities of pc2/StencilStream
+redesigned for JAX/XLA. (The package name is historical.)
 
 A user writes a *transition function* — a pure function mapping a halo-padded
 neighborhood view (:class:`Stencil`) of each cell to the cell's next value —
 and the framework applies it over a 2D grid for N iterations on one of
-several backends (pure-XLA reference oracle, VMEM-resident Pallas monotile,
-tiled Pallas for large grids, mesh-sharded distributed). Multi-field cells,
+several backends (the single-device XLA loop that is also the oracle,
+mesh-sharded distributed, ring pipeline). Multi-field cells,
 sub-iterations, time-dependent values, and iteration-offset pause/resume are
 first-class, matching the reference framework's feature set (see SURVEY.md).
 """

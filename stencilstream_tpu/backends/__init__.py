@@ -1,16 +1,14 @@
 """Stencil update backends.
 
 * ``reference`` — pure JAX/XLA oracle (the analog of the reference's CPU
-  backend, ``StencilStream/cpu/StencilUpdate.hpp``). Runs anywhere.
-* ``monotile`` — single fused Pallas kernel, whole grid resident in VMEM,
-  all iterations of a call computed per HBM round-trip (the analog of the
-  FPGA monotile temporal-blocking pipeline,
-  ``StencilStream/monotile/internal/StencilUpdateKernel.hpp``).
-* ``tiling`` — Pallas kernel over halo-padded tiles for grids larger than
-  VMEM (the analog of ``StencilStream/tiling/StencilUpdate.hpp``).
-* ``distributed`` — grid sharded over a TPU mesh with collective halo
-  exchange (the analog of the multi-FPGA IO-pipe ring,
-  ``StencilStream/monotile/internal/StencilUpdateDesign.hpp:221-348``).
+  backend, ``StencilStream/cpu/StencilUpdate.hpp``): all iterations in one
+  jitted device loop. Runs anywhere; the single-device path.
+* ``distributed`` — grid sharded over a device mesh with collective halo
+  exchange and fused shrinking-window passes (the analog of the multi-FPGA
+  IO-pipe ring, ``StencilStream/monotile/internal/StencilUpdateDesign.hpp:221-348``).
+* ``ring`` — multi-device temporal pipeline: each device applies its own
+  iterations to row chunks streaming around a ring.
+* ``auto`` — picks one of the above per grid (see :mod:`.auto`).
 """
 
 from . import reference
@@ -32,11 +30,9 @@ def create_update(params, backend: str = "auto", **backend_kwargs):
     """Construct a StencilUpdate for the named backend.
 
     ``"auto"`` dispatches per grid: ``distributed`` when more than one device
-    is visible, ``monotile`` when the grid fits the VMEM residency budget,
-    ``tiling`` otherwise — the analog of the reference's CMake backend macro
-    selection plus its monotile capacity validation
-    (``examples/conway/conway.cpp:24-33``,
-    ``monotile/StencilUpdate.hpp:200-209``).
+    is visible and the grid is large enough to shard, ``reference``
+    otherwise — the analog of the reference's CMake backend macro selection
+    (``examples/conway/conway.cpp:24-33``).
     """
     try:
         factory = _REGISTRY[backend]
@@ -45,18 +41,6 @@ def create_update(params, backend: str = "auto", **backend_kwargs):
             f"unknown backend {backend!r}; available: {available_backends()}"
         ) from None
     return factory(params, **backend_kwargs)
-
-
-def _make_monotile(params, **kw):
-    from . import monotile
-
-    return monotile.StencilUpdate(params, **kw)
-
-
-def _make_tiling(params, **kw):
-    from . import tiling
-
-    return tiling.StencilUpdate(params, **kw)
 
 
 def _make_distributed(params, **kw):
@@ -79,7 +63,5 @@ def _make_auto(params, **kw):
 
 register_backend("auto", _make_auto)
 register_backend("reference", lambda params, **kw: reference.StencilUpdate(params))
-register_backend("monotile", _make_monotile)
-register_backend("tiling", _make_tiling)
 register_backend("distributed", _make_distributed)
 register_backend("ring", _make_ring)

@@ -1,20 +1,18 @@
 """Automatic backend selection.
 
 The reference selects its backend at build time (CMake macro matrices,
-``examples/conway/conway.cpp:24-33``) and validates monotile capacity at
-runtime (``monotile/StencilUpdate.hpp:200-209``). The TPU-native analog is a
-runtime dispatch on the first grid seen:
+``examples/conway/conway.cpp:24-33``). Here the choice is a runtime dispatch
+on the grid seen and the visible device count:
 
 * more than one visible device AND the grid is large enough that the
   per-device collective halo padding doesn't dominate -> ``distributed``
   (mesh + halo exchange);
-* grid fits the monotile VMEM residency budget -> ``monotile`` (zero
-  redundant compute, the flagship);
-* otherwise -> ``tiling`` (strip temporal blocking, any size).
+* otherwise -> ``reference``: all iterations in one jitted device loop,
+  which XLA compiles for whatever device it runs on.
 
 Construction kwargs are forwarded to whichever backend is chosen, filtered
 to the parameters its constructor accepts, so ``create_update(params,
-backend="auto", unroll=4)`` works for every resolution.
+backend="auto", iters_per_pass=4)`` works for every resolution.
 """
 
 from __future__ import annotations
@@ -28,26 +26,19 @@ from .base import StencilUpdateBase
 
 __all__ = ["StencilUpdate", "choose_backend"]
 
+#: Below this many grid rows per device, sharding a grid over a mesh makes
+#: the collective halo padding dwarf the problem (a conway 12x12 should not
+#: ride ppermute); such grids stay on one device.
+MIN_ROWS_PER_DEVICE = 64
+
 
 def choose_backend(grid: Grid, n_devices: int | None = None) -> str:
     """Resolve the backend name for a grid (see module docstring)."""
     if n_devices is None:
         n_devices = len(jax.devices())
-    from .monotile import MONOTILE_VMEM_BUDGET, monotile_live_bytes
-
-    fits_monotile = monotile_live_bytes(grid.arrays) <= MONOTILE_VMEM_BUDGET
-    if n_devices > 1:
-        # Small-grid guard: sharding a toy grid over a mesh makes the
-        # collective row padding (Hp >= ny * max(hpm, m)) dwarf the problem
-        # (a conway 12x12 on a pod should not ride ppermute). Route grids
-        # whose per-device share is below one VMEM-ish block to a
-        # single-device backend instead.
-        per_device_rows = grid.height / n_devices
-        if per_device_rows >= 64 or not fits_monotile:
-            return "distributed"
-    if fits_monotile:
-        return "monotile"
-    return "tiling"
+    if n_devices > 1 and grid.height / n_devices >= MIN_ROWS_PER_DEVICE:
+        return "distributed"
+    return "reference"
 
 
 class StencilUpdate(StencilUpdateBase):
@@ -58,9 +49,6 @@ class StencilUpdate(StencilUpdateBase):
     calls with the same shape reuse the compiled path. ``resolved_backend``
     exposes the last choice for introspection/tests.
     """
-
-    # The delegate's own __call__ handles fallback; this wrapper only routes.
-    _can_fallback = False
 
     def __init__(self, params, **backend_kwargs):
         super().__init__(params)
@@ -76,7 +64,7 @@ class StencilUpdate(StencilUpdateBase):
             factory = _REGISTRY[name]
             # Filter kwargs to what the chosen backend's constructor takes.
             target = factory
-            if name in ("monotile", "tiling", "distributed", "ring"):
+            if name in ("distributed", "ring"):
                 import importlib
 
                 mod = importlib.import_module(f".{name}", __package__)
@@ -107,3 +95,6 @@ class StencilUpdate(StencilUpdateBase):
 
     def _update(self, grid: Grid) -> Grid:  # pragma: no cover - routed above
         return self._delegate_for(choose_backend(grid))._update(grid)
+
+    def lower(self, grid: Grid):
+        return self._delegate_for(choose_backend(grid)).lower(grid)

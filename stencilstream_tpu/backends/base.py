@@ -43,47 +43,14 @@ def resolve_halo(halo_value: Any, grid: Grid) -> Any:
     )
 
 
-def _is_toolchain_failure(e: Exception) -> bool:
-    """True if ``e`` came out of the JAX/XLA/Mosaic toolchain rather than
-    framework validation or user transition-function code.
-
-    Classified by (a) the exception type living in a jax/jaxlib module
-    (``XlaRuntimeError``, Mosaic lowering errors, ...), or (b) a bare
-    ``RuntimeError``/``NotImplementedError`` whose raising frame is inside
-    jax — Mosaic lowering raises builtins for unsupported ops. A
-    ``RuntimeError`` raised from user code is NOT a toolchain failure and
-    propagates (ADVICE.md round 1: the broad match masked user bugs).
-    """
-    mod = type(e).__module__ or ""
-    if mod.startswith(("jax", "jaxlib")):
-        return True
-    if type(e).__name__ in ("XlaRuntimeError", "JaxRuntimeError", "MosaicError"):
-        return True
-    if isinstance(e, (RuntimeError, NotImplementedError)):
-        tb = e.__traceback__
-        frames = []
-        while tb is not None:
-            frames.append(tb.tb_frame.f_globals.get("__name__", ""))
-            tb = tb.tb_next
-        # The *raising* (innermost) frame decides: toolchain errors originate
-        # inside jax/jaxlib even when user code sits above them on the stack.
-        return bool(frames) and frames[-1].startswith(("jax", "jaxlib"))
-    return False
-
-
 class StencilUpdateBase:
     """Base class for all stencil updaters.
 
-    ``fallback_to_reference`` (default True for accelerated backends):
-    if the backend's compiled path fails (e.g. a toolchain defect on some
-    kernel shape), the update transparently re-runs through the pure-XLA
-    reference backend and keeps using it, with a one-time warning — every
-    transition function always *runs*, accelerated or not.
+    A compile or runtime failure of a backend propagates to the caller: no
+    updater silently re-runs a grid on another backend or device.
     """
 
     Params = Params
-    #: overridden by accelerated backends
-    _can_fallback = False
 
     def __init__(self, params: Params):
         if isinstance(params, dict):
@@ -92,8 +59,6 @@ class StencilUpdateBase:
         self.params = params
         self._n_processed_cells = 0
         self._walltime = 0.0
-        self.fallback_to_reference = self._can_fallback
-        self._fallback = None
 
     # -- the updater contract ------------------------------------------------
     def get_params(self) -> Params:
@@ -108,33 +73,7 @@ class StencilUpdateBase:
             grid = Grid(grid)
         p = self.params
         start = time.perf_counter()
-        if self._fallback is not None:
-            self._fallback.params = self.params
-            out = self._fallback._update(grid)
-        else:
-            try:
-                out = self._update(grid)
-                if p.blocking:
-                    out.block_until_ready()
-            except Exception as e:  # pragma: no cover - toolchain-dependent
-                # Framework validation errors (capacity checks, bad configs)
-                # and errors raised from *user* transition-function code are
-                # intentional and re-raised; only toolchain (JAX/XLA/Mosaic)
-                # failures fall back (advisor finding, ADVICE.md round 1).
-                if not (self.fallback_to_reference and _is_toolchain_failure(e)):
-                    raise
-                import warnings
-
-                from . import reference
-
-                warnings.warn(
-                    f"{type(self).__module__.rsplit('.', 1)[-1]} backend failed to "
-                    f"compile/run ({type(e).__name__}); falling back to the "
-                    f"reference backend for this updater. Original error: "
-                    f"{str(e).splitlines()[0][:200]}"
-                )
-                self._fallback = reference.StencilUpdate(self.params)
-                out = self._fallback._update(grid)
+        out = self._update(grid)
         if p.blocking:
             out.block_until_ready()
         self._walltime += time.perf_counter() - start
@@ -151,6 +90,11 @@ class StencilUpdateBase:
     # -- backend hook --------------------------------------------------------
     def _update(self, grid: Grid) -> Grid:
         raise NotImplementedError
+
+    def lower(self, grid: Grid):
+        """The :class:`jax.stages.Lowered` program one call on ``grid``
+        runs, for ``.compile()``, ``memory_analysis()`` and the HLO text."""
+        raise NotImplementedError(f"{type(self).__name__} does not expose lower()")
 
     # -- shared helpers ------------------------------------------------------
     def _tdv_strategy(self):

@@ -1,30 +1,21 @@
-"""Distributed backend: grid sharded over a TPU mesh, collective halo exchange.
+"""Distributed backend: grid sharded over a device mesh, collective halo
+exchange.
 
-The TPU-native replacement for the reference's multi-FPGA scale-out
+The replacement for the reference's multi-FPGA scale-out
 (``StencilStream/monotile/internal/StencilUpdateDesign.hpp:221-348``): where
 the reference circulates the *whole grid* around a ring of FPGAs — each lap
 advancing ``n_ranks * p`` iterations, data moving over two 32-byte serial
-channels per hop — the TPU-native design shards the grid *spatially* over a
-device mesh and exchanges only ``halo``-wide boundary strips per pass over
-ICI (``lax.ppermute``). This is the scheme the reference itself identifies as
+channels per hop — this design shards the grid *spatially* over a device
+mesh and exchanges only ``halo``-wide boundary strips per pass
+(``lax.ppermute``). This is the scheme the reference itself identifies as
 the scalable one (overlapped tiling with compound halo,
 ``tiling/internal/StencilUpdateKernel.hpp:79-91``) but could not build for
-lack of an all-to-all fabric; on TPU it is the idiomatic one.
+lack of an all-to-all fabric.
 
-Two local-compute paths, same collective structure:
-
-* ``local_compute="pallas"`` (default): per pass each device extends its
-  local block with halo data from its mesh neighbors — rows only on a 1D
-  row mesh (:func:`..parallel.exchange_halo_rows`), rows plus a
-  lane-aligned column halo on 2D meshes (:func:`..parallel.exchange_halo`)
-  — then runs the SAME optimized Pallas strip kernel the single-chip
-  tiling backend uses (:class:`.strip_pass.StripPass`, ``mode="extended"``)
-  — the analog of the reference's distributed design reusing the
-  single-device work kernel (``monotile/internal/StencilUpdateDesign.hpp:221-348``).
-  Per-chip throughput therefore matches the tiling backend.
-* ``local_compute="xla"``: two-phase halo exchange, then ``p`` fused
-  iterations with the shrinking-window discipline in plain XLA
-  (:mod:`.fused`) — the simple semantic cross-check path.
+Per pass each device extends its local block with halo data from its mesh
+neighbours (two-phase exchange, :func:`..parallel.exchange_halo`), then
+applies ``p`` fused iterations with the shrinking-window discipline in plain
+XLA (:func:`.fused.fused_window_pass`).
 
 Everything (pass loop included) runs inside one ``jit`` + ``shard_map``, so
 XLA overlaps the ppermute collectives with local compute where profitable.
@@ -43,23 +34,12 @@ from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..core.grid import Grid
-from ..parallel import exchange_halo, exchange_halo_rows, make_mesh
+from ..parallel import exchange_halo, make_mesh, round_up
 from ..tdv import PrecomputeOnDeviceTDV
 from .base import StencilUpdateBase, resolve_halo
 from .fused import fused_window_pass, halo_width
-from .pallas_util import round_up, should_interpret
-from .strip_pass import StripPass, cell_sublane_multiple
 
 __all__ = ["StencilUpdate"]
-
-
-def _col_halo_width(hp: int, nx: int) -> int:
-    """Stored column halo per side for the Pallas local path: zero on 1D
-    row meshes (full-width strips), lane-tile aligned on 2D meshes
-    (unaligned lane offsets are a Mosaic performance cliff). Single source
-    of truth for the padding in ``_update`` and the kernel geometry in
-    ``_run_distributed``."""
-    return round_up(hp, 128) if nx > 1 else 0
 
 
 @functools.partial(
@@ -72,11 +52,6 @@ def _col_halo_width(hp: int, nx: int) -> int:
         "iters_per_pass",
         "mesh",
         "grid_range",
-        "local_compute",
-        "strip_rows",
-        "unroll",
-        "shift_impl",
-        "interpret",
     ),
 )
 def _run_distributed(
@@ -93,11 +68,6 @@ def _run_distributed(
     iters_per_pass: int,
     mesh: Mesh,
     grid_range: tuple[int, int],
-    local_compute: str = "pallas",
-    strip_rows: int | None = None,
-    unroll: int = 1,
-    shift_impl: str = "concat",
-    interpret: bool = False,
 ):
     if n_iterations == 0:
         return padded
@@ -118,69 +88,8 @@ def _run_distributed(
     grid_spec = jax.tree.map(lambda _: P("y", "x"), padded)
     rep = lambda tree: jax.tree.map(lambda _: P(), tree)
 
-    m = cell_sublane_multiple(padded)
-    hpm = round_up(hp, m)
-    chm = _col_halo_width(hp, nx)
-
-    def spmd_pallas(local, tf, halo_cell, offset, tdv_aux):
-        """Pallas local-compute path: collective halo exchange + the SAME
-        tiling strip kernel over each device's extended block. 1D row
-        meshes exchange rows only (full-width strips, zero lane-dim halo);
-        2D meshes additionally carry a lane-aligned column halo
-        (``chm = round_up(halo, 128)`` — wider than strictly needed, but
-        unaligned lane offsets make Mosaic emit catastrophically slow
-        code, and the extra ICI traffic is boundary-proportional)."""
-        iy = lax.axis_index("y")
-        ix = lax.axis_index("x")
-        base_origin = iy * h - hpm
-        base_col = ix * w - chm
-        ext_example = jax.tree.map(
-            lambda a: jax.ShapeDtypeStruct((h + 2 * hpm, w + 2 * chm), a.dtype),
-            local,
-        )
-        sp = StripPass(
-            ext_example,
-            tf,
-            halo_cell,
-            strategy,
-            tdv_aux,
-            radius=r,
-            n_subiterations=k,
-            n_iterations=n_iterations,
-            iters_per_pass=p,
-            strip_rows=strip_rows if strip_rows is not None else h,
-            grid_range=(H, W),
-            mode="extended",
-            base_origin=base_origin,
-            col_halo=chm,
-            base_col=base_col,
-            unroll=unroll,
-            shift_impl=shift_impl,
-            interpret=interpret,
-        )
-
-        def pass_body(i_pass, local):
-            if chm:
-                # Move only the needed hp columns over ICI (packed
-                # lane-dense); the lane-aligned chm frame is filled locally
-                # — the 8x inflation fix (bench.model.ici_exchange_report).
-                # Rows ride at the stored hpm width: full-width row slices
-                # are already lane-dense, and hpm - hp < m rows is noise.
-                ext = exchange_halo(
-                    local, (hpm, chm), ("y", "x"), (ny, nx),
-                    payload=(hpm, hp),
-                )
-            else:
-                ext = exchange_halo_rows(local, hpm, "y", ny)
-            return sp.run(
-                ext, offset + i_pass * p, offset, base_origin, base_col
-            )
-
-        return lax.fori_loop(0, n_passes, pass_body, local)
-
-    def spmd_xla(local, tf, halo_cell, offset, tdv_aux):
-        """2D-mesh path: two-phase halo exchange + shrinking fused window in
-        plain XLA."""
+    def spmd(local, tf, halo_cell, offset, tdv_aux):
+        """Two-phase halo exchange + shrinking fused window, per pass."""
         iy = lax.axis_index("y")
         ix = lax.axis_index("x")
         origin = (iy * h - hp, ix * w - hp)
@@ -210,14 +119,13 @@ def _run_distributed(
 
         return lax.fori_loop(0, n_passes, pass_body, local)
 
-    spmd = spmd_pallas if local_compute == "pallas" else spmd_xla
     return jax.shard_map(
         spmd,
         mesh=mesh,
         in_specs=(grid_spec, rep(tf), rep(halo_cell), P(), rep(tdv_aux)),
         out_specs=grid_spec,
-        # pallas_call's out_shape carries no varying-mesh-axes annotation;
-        # the sharding here is by construction (per-device strip blocks).
+        # Values derived from axis_index (window origins) vary per device;
+        # the sharding of the result is by construction (per-device blocks).
         check_vma=False,
     )(padded, tf, halo_cell, offset, tdv_aux)
 
@@ -228,19 +136,11 @@ class StencilUpdate(StencilUpdateBase):
     Extra keyword options:
 
     * ``mesh`` — a :class:`jax.sharding.Mesh` with axes ``("y", "x")``.
-      Default: all visible devices as a 1D row mesh ``(n, 1)``. Any mesh
-      shape runs the optimized Pallas strip kernel locally (2D meshes add
-      a lane-aligned column halo to the exchange).
+      Default: all visible devices as a 1D row mesh ``(n, 1)``.
     * ``iters_per_pass`` — temporal parallelism p: iterations fused between
       halo exchanges; the halo width is ``r * p * n_subiterations`` per side
       (communication/redundant-compute tradeoff, SURVEY.md §2.7.5).
-    * ``local_compute`` — ``"pallas"`` (default, any mesh shape) or
-      ``"xla"`` (the plain-XLA cross-check path).
-    * ``strip_rows`` / ``unroll`` / ``shift_impl`` / ``interpret`` — Pallas
-      strip-kernel knobs, as in the tiling backend.
     """
-
-    _can_fallback = True
 
     def __init__(
         self,
@@ -248,29 +148,12 @@ class StencilUpdate(StencilUpdateBase):
         *,
         mesh: Mesh | None = None,
         iters_per_pass: int = 4,
-        local_compute: str | None = None,
-        strip_rows: int | None = None,
-        unroll: int = 1,
-        shift_impl: str = "concat",
-        interpret: bool | None = None,
     ):
         super().__init__(params)
         if mesh is None:
-            n = len(jax.devices())
-            mesh = make_mesh(shape=(n, 1))
+            mesh = make_mesh(shape=(len(jax.devices()), 1))
         self.mesh = mesh
-        ny, nx = mesh.devices.shape
-        if local_compute is None:
-            local_compute = "pallas"
-        self.local_compute = local_compute
         self.iters_per_pass = iters_per_pass
-        self.strip_rows = strip_rows
-        self.unroll = unroll
-        self.shift_impl = shift_impl
-        self.interpret = interpret
-        #: The configuration the last ``_update`` actually executed — same
-        #: contract as the tiling backend's (bench model wiring).
-        self.resolved_config: dict | None = None
 
     def _update(self, grid: Grid) -> Grid:
         prm = self.params
@@ -284,23 +167,12 @@ class StencilUpdate(StencilUpdateBase):
 
         p = max(1, min(self.iters_per_pass, n or 1))
         hp = halo_width(r, p, k)
-        m = cell_sublane_multiple(grid.arrays)
-        hpm = round_up(hp, m)
 
         # Pad the grid so every device gets an equal local block of at least
-        # halo size (single-hop neighbor exchange). The pallas path also
-        # needs sublane-aligned local rows and lane-aligned width.
-        if self.local_compute == "pallas":
-            min_local = max(hpm, m)
-            Hp = round_up(max(H, ny * min_local), ny * m)
-            # 2D meshes: each device's local width must be lane-aligned and
-            # at least one column-halo wide (single-hop neighbor exchange).
-            chm = _col_halo_width(hp, nx)
-            Wp = round_up(max(W, nx * max(chm, 128)), nx * 128)
-        else:
-            min_local = max(hp, 8)
-            Hp = round_up(max(H, ny * min_local), ny)
-            Wp = round_up(max(W, nx * min_local), nx)
+        # halo size (single-hop neighbor exchange).
+        min_local = max(hp, 1)
+        Hp = round_up(max(H, ny * min_local), ny)
+        Wp = round_up(max(W, nx * min_local), nx)
 
         halo_typed = jax.tree.map(
             lambda hv, a: jnp.asarray(hv, a.dtype), halo_cell, grid.arrays
@@ -315,23 +187,6 @@ class StencilUpdate(StencilUpdateBase):
 
         offset = jnp.asarray(prm.iteration_offset, jnp.int32)
         tdv_aux = strategy.prepare(tf, int(prm.iteration_offset), n)
-        interpret = (
-            self.interpret if self.interpret is not None else should_interpret()
-        )
-        strip_rows = self.strip_rows
-        if self.local_compute == "pallas" and strip_rows is None:
-            from .tiling import pick_config
-
-            local_example = jax.tree.map(lambda a: a[: Hp // ny], padded)
-            strip_rows, _ = pick_config(local_example, r, k, n, None, p)
-        self.resolved_config = dict(
-            window_mode="extended",
-            strip_rows=strip_rows if strip_rows is not None else Hp // ny,
-            iters_per_pass=p,
-            unroll=1 if self.unroll == 1 else p,
-            shift_impl=self.shift_impl,
-            transposed=False,
-        )
         out = _run_distributed(
             padded,
             tf,
@@ -345,11 +200,6 @@ class StencilUpdate(StencilUpdateBase):
             iters_per_pass=p,
             mesh=self.mesh,
             grid_range=(H, W),
-            local_compute=self.local_compute,
-            strip_rows=strip_rows,
-            unroll=self.unroll,
-            shift_impl=self.shift_impl,
-            interpret=interpret,
         )
         out = jax.tree.map(lambda a: a[:H, :W], out)
         return Grid(out)

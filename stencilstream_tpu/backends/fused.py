@@ -1,11 +1,11 @@
 """Fused multi-iteration window updates (temporal blocking building block).
 
-This is the TPU-native replacement for the reference's processing-element
-chain (``StencilStream/monotile/internal/StencilUpdateKernel.hpp:65``,
+This replaces the reference's processing-element chain
+(``StencilStream/monotile/internal/StencilUpdateKernel.hpp:65``,
 ``tiling/internal/StencilUpdateKernel.hpp:59``): where the FPGA unrolls
 ``p * n_subiterations`` PEs in silicon and streams cells through them, we
-apply the same number of *whole-window* sub-iteration steps in the program,
-keeping the window in VMEM/registers between steps.
+apply the same number of *whole-window* sub-iteration steps in the program
+between two halo exchanges.
 
 Per-axis window disciplines, matching the two reference kernels:
 
@@ -28,10 +28,9 @@ per-PE coordinate-based halo masking
 iteration index is past the requested target pass through unchanged, the
 reference's partial-pass pass-through (:250-256).
 
-Everything here is plain ``jnp``: it traces inside Pallas kernels (tiling,
-monotile) and inside ``shard_map`` (distributed, ring) alike. Pallas callers
-use :func:`fused_substep` directly (hoisted, with the TDV supplied per step
-by the kernel); XLA callers use :func:`fused_window_pass`.
+Everything here is plain ``jnp`` and traces inside ``shard_map``
+(distributed, ring); callers use :func:`fused_window_pass`, which applies
+:func:`fused_substep` once per fused iteration.
 """
 
 from __future__ import annotations
@@ -54,13 +53,6 @@ def halo_width(radius: int, iters_per_pass: int, n_subiterations: int) -> int:
     return radius * iters_per_pass * n_subiterations
 
 
-#: Neighbor-shift lowering: "concat" (slice-then-concat, works everywhere)
-#: or "roll" (pltpu.roll + edge mask — Pallas kernels only; may schedule
-#: better on the VPU). The Pallas backends trace through whatever this is
-#: set to at HoistedFn construction time.
-SHIFT_IMPL = "concat"
-
-
 def shifted(a, d: int, axis: int, hv, mask: bool = True):
     """Shape-preserving shift: ``out[i] = a[i + d]`` along ``axis``, with the
     halo value where ``i + d`` runs past the array.
@@ -68,51 +60,19 @@ def shifted(a, d: int, axis: int, hv, mask: bool = True):
     ``mask=False`` (transition functions declaring ``handles_boundary``)
     skips the halo-value substitution: positions past the array edge hold
     *wrapped* values the kernel must discard itself — this removes one
-    select (+ iota, for the roll lowering) per tap per sub-step.
-
-    The slice-then-concat form is the neighbor idiom that composes safely
-    under Mosaic — enlarging pads followed by slices miscompile when chained
-    (see docs/DESIGN.md "Empirically-discovered Mosaic constraints").
+    select per tap per sub-step.
     """
     if d == 0:
         return a
-    as_bool = a.dtype == jnp.bool_
-    if as_bool:
-        a = a.astype(jnp.int8)
-    n = a.shape[axis]
-    # Mosaic's rotate (tpu.dynamic_rotate) only has a 32-bit datapath —
-    # pltpu.roll on bf16/int8 fails to compile ("Rotate with non-32-bit
-    # data", measured round 4 on the bf16-storage A/B). Narrow dtypes take
-    # the concat lowering regardless of SHIFT_IMPL.
-    use_roll = SHIFT_IMPL == "roll" and a.dtype.itemsize == 4
     if not mask:
-        if use_roll:
-            from jax.experimental.pallas import tpu as pltpu
-
-            out = pltpu.roll(a, (-d) % n, axis)
-        else:
-            out = jnp.roll(a, -d, axis)
-        return out.astype(jnp.bool_) if as_bool else out
-    if use_roll:
-        from jax.experimental.pallas import tpu as pltpu
-
-        out = pltpu.roll(a, (-d) % n, axis)
-        idx = lax.broadcasted_iota(jnp.int32, a.shape, axis)
-        oob = (idx >= n - d) if d > 0 else (idx < -d)
-        out = jnp.where(oob, jnp.asarray(hv, a.dtype), out)
-    else:
-        shape = list(a.shape)
-        shape[axis] = abs(d)
-        frame = jnp.full(shape, jnp.asarray(hv, a.dtype))
-        if d > 0:
-            out = jnp.concatenate(
-                [lax.slice_in_dim(a, d, n, axis=axis), frame], axis=axis
-            )
-        else:
-            out = jnp.concatenate(
-                [frame, lax.slice_in_dim(a, 0, n + d, axis=axis)], axis=axis
-            )
-    return out.astype(jnp.bool_) if as_bool else out
+        return jnp.roll(a, -d, axis)
+    n = a.shape[axis]
+    shape = list(a.shape)
+    shape[axis] = abs(d)
+    frame = jnp.full(shape, jnp.asarray(hv, a.dtype))
+    if d > 0:
+        return jnp.concatenate([lax.slice_in_dim(a, d, n, axis=axis), frame], axis=axis)
+    return jnp.concatenate([frame, lax.slice_in_dim(a, 0, n + d, axis=axis)], axis=axis)
 
 
 def mask_out_of_grid(
@@ -151,20 +111,12 @@ def fused_substep(
     n_subiterations: int,
     row_mode: str = "pad",
     col_mode: str = "pad",
-    oog_mask: Any = None,
 ) -> tuple[Any, Any, Any]:
     """One fused iteration (all ``n_subiterations`` phases) over a window.
 
     Returns ``(window, row0, col0)``; each ``"shrink"`` axis is smaller by
     ``2 * radius * n_subiterations`` with its origin advanced accordingly.
-    Pure in all arguments — safe to hoist for Pallas (the TDV is an input,
-    so per-step lookup stays outside, where refs can be indexed).
-
-    ``oog_mask``: precomputed out-of-grid boolean mask of the window
-    (pad/pad geometry is loop-invariant, so callers hoist it out of the step
-    loop instead of re-deriving the coordinate compares each sub-step; the
-    coordinate iotas themselves are dead-code-eliminated when the transition
-    function does not read ``stencil.id``).
+    Pure in all arguments (the TDV is an input, looked up by the caller).
     """
     r = radius
     H, W = grid_range
@@ -218,25 +170,14 @@ def fused_substep(
         center = stencil[0, 0]
         new = canonicalize_cell(tf(stencil), center)
         # Partial-pass pass-through (scalar predicate, vectorized select).
-        # ``active is True`` (static) means the caller proved the pass full —
-        # skip the select entirely.
-        if active is not True:
-            new = jax.tree.map(lambda n, c: jnp.where(active, n, c), new, center)
+        new = jax.tree.map(lambda n, c: jnp.where(active, n, c), new, center)
         # Halo re-mask: out-of-grid positions always present halo_value.
-        # ``oog_mask is False`` (static) means the window is entirely
-        # in-grid and grid-edge-padded — skip the select.
-        if oog_mask is False:
-            window = new
-        else:
-            if oog_mask is not None and row_mode == "pad" and col_mode == "pad":
-                out_of_grid = oog_mask
-            else:
-                out_of_grid = (row < 0) | (row >= H) | (col < 0) | (col >= W)
-            window = jax.tree.map(
-                lambda n, hv: jnp.where(out_of_grid, jnp.asarray(hv, n.dtype), n),
-                new,
-                halo_cell,
-            )
+        out_of_grid = (row < 0) | (row >= H) | (col < 0) | (col >= W)
+        window = jax.tree.map(
+            lambda n, hv: jnp.where(out_of_grid, jnp.asarray(hv, n.dtype), n),
+            new,
+            halo_cell,
+        )
     return window, row0, col0
 
 
@@ -277,9 +218,10 @@ def fused_window_pass(
     # sub-step too (mesh-edge ppermute halos arrive as zeros).
     window = mask_out_of_grid(window, halo_cell, (row0, col0), grid_range)
 
-    def one_step(step, window, row0, col0):
+    # Shrinking windows change shape every step, so the step loop unrolls.
+    for step in range(n_steps):
         i_abs = i_start + step
-        return fused_substep(
+        window, row0, col0 = fused_substep(
             window,
             tf,
             halo_cell,
@@ -294,13 +236,4 @@ def fused_window_pass(
             row_mode=row_mode,
             col_mode=col_mode,
         )
-
-    if row_mode == "pad" and col_mode == "pad":
-        # Shape-invariant: roll the step loop (compile scales with k, not p*k).
-        window = lax.fori_loop(
-            0, n_steps, lambda s, w: one_step(s, w, row0, col0)[0], window
-        )
-    else:
-        for step in range(n_steps):
-            window, row0, col0 = one_step(step, window, row0, col0)
     return window

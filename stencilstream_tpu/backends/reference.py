@@ -1,6 +1,6 @@
 """The reference backend: pure JAX/XLA, the semantic oracle.
 
-This is the TPU-native analog of the reference's CPU backend
+This is the analog of the reference's CPU backend
 (``StencilStream/cpu/StencilUpdate.hpp:40-228``), which is the semantic gold
 standard all other backends are tested against. Where the CPU backend submits
 one work-item-per-cell kernel per (iteration, sub-iteration) with per-item
@@ -8,12 +8,15 @@ halo-checked gathers (``cpu/StencilUpdate.hpp:199-221``), this backend:
 
 * pads each field array by the stencil radius with the halo value,
 * materializes each used neighbor as one static slice of the padded array
-  (XLA fuses the shifts and the elementwise transition math into one kernel),
+  (XLA fuses the shifts and the elementwise transition math into one kernel
+  per sub-iteration),
 * iterates with ``lax.fori_loop`` — one fused device loop, not N kernel
   launches.
 
-It runs on any JAX backend (CPU/GPU/TPU) and is the test oracle for the
-Pallas monotile/tiling backends.
+It runs on any JAX platform. It is the single-device path ``auto`` picks and
+the test oracle for the multi-device backends. On a GPU each sub-iteration
+reads and writes every field once: one device-memory round trip per
+sub-iteration, the same structure as the reference project's own GPU backend.
 """
 
 from __future__ import annotations
@@ -53,9 +56,8 @@ def single_subiteration(
     is the global (row, col) of the block's first cell and ``grid_range`` the
     logical grid extent used for ``stencil.id``/``grid_range`` semantics.
 
-    Neighbors are built lazily, one shape-preserving halo shift each (the
-    idiom that chains safely under Mosaic and only materializes the
-    neighbors the transition function touches).
+    Neighbors are built lazily, one shape-preserving halo shift each, so
+    only the neighbors the transition function touches are materialized.
     """
     from .fused import shifted
 
@@ -126,26 +128,33 @@ def _run(
 class StencilUpdate(StencilUpdateBase):
     """Pure-JAX stencil updater (the oracle backend)."""
 
-    def _update(self, grid: Grid) -> Grid:
+    def _run_args(self, grid: Grid):
         p = self.params
         tf = p.transition_function
         strategy = self._tdv_strategy()
-        halo_cell = resolve_halo(p.halo_value, grid)
         n = int(p.n_iterations)
-        offset = jnp.asarray(p.iteration_offset, jnp.int32)
-        tdv_aux = strategy.prepare(tf, int(p.iteration_offset), n)
-        out = _run(
+        args = (
             grid.arrays,
             tf,
-            halo_cell,
-            offset,
-            tdv_aux,
+            resolve_halo(p.halo_value, grid),
+            jnp.asarray(p.iteration_offset, jnp.int32),
+            strategy.prepare(tf, int(p.iteration_offset), n),
+        )
+        kwargs = dict(
             radius=tf.stencil_radius,
             n_subiterations=tf.n_subiterations,
             n_iterations=n,
             strategy=strategy,
         )
-        return Grid(out)
+        return args, kwargs
+
+    def _update(self, grid: Grid) -> Grid:
+        args, kwargs = self._run_args(grid)
+        return Grid(_run(*args, **kwargs))
+
+    def lower(self, grid: Grid):
+        args, kwargs = self._run_args(grid)
+        return _run.lower(*args, **kwargs)
 
 
 def apply_iterations(

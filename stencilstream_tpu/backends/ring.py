@@ -1,12 +1,12 @@
 """Ring backend: multi-device *temporal* pipeline (iteration pipelining).
 
-The TPU-native realization of the reference's experimental multi-FPGA
+The realization of the reference's experimental multi-FPGA
 monotile variant (``StencilStream/monotile/internal/StencilUpdateDesign.hpp:221-348``):
 N accelerators chained in a ring, each applying its own ``p`` iterations to
 the grid as it streams through, so one lap around the ring advances
 ``N * p`` iterations. The reference moves data board-to-board over two
 32-byte serial channels with root-only memory I/O; here the stream is a
-sequence of row *chunks* moving over ICI (``lax.ppermute``), with the same
+sequence of row *chunks* moving between devices (``lax.ppermute``), with the same
 root-style semantics (the assembled result is reduced back to every device
 at the end of each lap).
 
@@ -23,16 +23,10 @@ Pipeline schedule (SPMD, one ``fori_loop`` over ticks):
   into the lap result, which a ``psum`` re-replicates (rank-0-writes-memory,
   ``StencilUpdateDesign.hpp:328-335``).
 
-Each per-device chunk update runs the SAME optimized Pallas strip kernel as
-the tiling/distributed backends (:class:`.strip_pass.StripPass`,
-``mode="extended"`` over the chunk window, ``local_compute="pallas"``,
-default) or a fused shrinking-window pass in plain XLA
-(``local_compute="xla"``, the semantic cross-check path) — so ring chunks
-compute at tiling-backend speed, the analog of the reference's multi-FPGA
-design reusing the single-device work kernel
-(``StencilUpdateDesign.hpp:221-348``). Partial laps (``n % (N*p) != 0``)
-pass cells through unchanged exactly like the reference's partial-pass PEs
-(:250-256).
+Each per-device chunk update is a fused shrinking-window pass in plain XLA
+(:func:`.fused.fused_window_pass`, the same pass the distributed backend
+runs). Partial laps (``n % (N*p) != 0``) pass cells through unchanged
+exactly like the reference's partial-pass PEs (:250-256).
 
 This backend pays ring-circulation traffic (the whole grid crosses every
 hop each lap) in exchange for multiplying temporal depth by N — the same
@@ -51,12 +45,9 @@ from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..core.grid import Grid
-from ..parallel import make_mesh
 from ..tdv import PrecomputeOnDeviceTDV
 from .base import StencilUpdateBase, resolve_halo
 from .fused import fused_window_pass, halo_width
-from .pallas_util import round_up, should_interpret
-from .strip_pass import StripPass, cell_sublane_multiple
 
 __all__ = ["StencilUpdate"]
 
@@ -72,11 +63,6 @@ __all__ = ["StencilUpdate"]
         "chunk_rows",
         "mesh",
         "grid_range",
-        "local_compute",
-        "strip_rows",
-        "unroll",
-        "shift_impl",
-        "interpret",
     ),
 )
 def _run_ring(
@@ -94,11 +80,6 @@ def _run_ring(
     chunk_rows: int,
     mesh: Mesh,
     grid_range: tuple[int, int],
-    local_compute: str = "pallas",
-    strip_rows: int | None = None,
-    unroll: int = 1,
-    shift_impl: str = "concat",
-    interpret: bool = False,
 ):
     if n_iterations == 0:
         return arrays
@@ -108,11 +89,7 @@ def _run_ring(
 
     H, W = grid_range
     r, k, p, ch = radius, n_subiterations, iters_per_pass, chunk_rows
-    hp = halo_width(r, p, k)
-    # Pallas chunk windows carry a sublane-aligned stored halo (element
-    # window offsets must stay aligned); the XLA path shrinks by exactly hp.
-    m = cell_sublane_multiple(arrays)
-    look = round_up(hp, m) if local_compute == "pallas" else hp
+    look = halo_width(r, p, k)
     n_dev = mesh.devices.size
     n_chunks = -(-H // ch)
     Hp = n_chunks * ch
@@ -149,35 +126,6 @@ def _run_ring(
     def spmd(g, tf, halo_cell, offset, tdv_aux):
         d = lax.axis_index("ring")
 
-        if local_compute == "pallas":
-            # The SAME strip kernel as tiling/distributed, in extended mode
-            # over each chunk window (core = chunk, stored halo = look per
-            # side). force_partial: a device's whole pass may fall past the
-            # target on the last lap even when p divides n.
-            ext_example = jax.tree.map(
-                lambda a: jax.ShapeDtypeStruct((ch + 2 * look, a.shape[1]), a.dtype),
-                arrays,
-            )
-            sp = StripPass(
-                ext_example,
-                tf,
-                halo_cell,
-                strategy,
-                tdv_aux,
-                radius=r,
-                n_subiterations=k,
-                n_iterations=n_iterations,
-                iters_per_pass=p,
-                strip_rows=strip_rows if strip_rows is not None else ch,
-                grid_range=(H, W),
-                mode="extended",
-                base_origin=jnp.asarray(-look, jnp.int32),
-                unroll=unroll,
-                shift_impl=shift_impl,
-                interpret=interpret,
-                force_partial=True,
-            )
-
         def lap_body(lap, g):
             i_start_dev = offset + lap * lap_iters + d * p
 
@@ -210,27 +158,21 @@ def _run_ring(
                     window,
                     arrays,
                 )
-                origin_row = j * ch - look
-                if local_compute == "pallas":
-                    out_chunk = sp.run(
-                        window, i_start_dev, offset, origin_row
-                    )
-                else:
-                    out_chunk = fused_window_pass(
-                        window,
-                        tf,
-                        halo_cell,
-                        origin=(origin_row, 0),
-                        grid_range=(H, W),
-                        i_start=i_start_dev,
-                        i_target=i_target,
-                        tdv_lookup=tdv_lookup,
-                        radius=r,
-                        n_subiterations=k,
-                        n_steps=p,
-                        row_mode="shrink",
-                        col_mode="pad",
-                    )
+                out_chunk = fused_window_pass(
+                    window,
+                    tf,
+                    halo_cell,
+                    origin=(j * ch - look, 0),
+                    grid_range=(H, W),
+                    i_start=i_start_dev,
+                    i_target=i_target,
+                    tdv_lookup=tdv_lookup,
+                    radius=r,
+                    n_subiterations=k,
+                    n_steps=p,
+                    row_mode="shrink",
+                    col_mode="pad",
+                )
                 out_chunk = jax.tree.map(
                     lambda o, a: o.astype(jnp.int8) if a.dtype == jnp.bool_ else o,
                     out_chunk,
@@ -286,9 +228,8 @@ def _run_ring(
         mesh=mesh,
         in_specs=(rep(padded), rep(tf), rep(halo_cell), P(), rep(tdv_aux)),
         out_specs=rep(padded),
-        # pallas_call's out_shape carries no varying-mesh-axes annotation
-        # (same situation as the distributed backend); the final psum
-        # re-replicates by construction.
+        # Per-device values (axis_index, the last device's accumulator) are
+        # re-replicated by the final psum, by construction.
         check_vma=False,
     )(padded, tf, halo_cell, offset, tdv_aux)
     return jax.tree.map(
@@ -307,14 +248,8 @@ class StencilUpdate(StencilUpdateBase):
     * ``iters_per_pass`` — p iterations applied per device per lap
       (lap depth = ``n_devices * p``).
     * ``chunk_rows`` — rows per streamed chunk (>= the compound halo
-      ``r * p * n_subiterations``; default auto).
-    * ``local_compute`` — ``"pallas"`` (default: chunk windows run the
-      tiling strip kernel) or ``"xla"`` (the plain-XLA cross-check path).
-    * ``strip_rows`` / ``unroll`` / ``shift_impl`` / ``interpret`` — Pallas
-      strip-kernel knobs, as in the tiling backend.
+      ``r * p * n_subiterations``; default: an eighth of the grid).
     """
-
-    _can_fallback = True
 
     def __init__(
         self,
@@ -323,11 +258,6 @@ class StencilUpdate(StencilUpdateBase):
         mesh: Mesh | None = None,
         iters_per_pass: int = 2,
         chunk_rows: int | None = None,
-        local_compute: str = "pallas",
-        strip_rows: int | None = None,
-        unroll: int = 1,
-        shift_impl: str = "concat",
-        interpret: bool | None = None,
     ):
         super().__init__(params)
         if mesh is None:
@@ -337,11 +267,6 @@ class StencilUpdate(StencilUpdateBase):
         self.mesh = mesh
         self.iters_per_pass = iters_per_pass
         self.chunk_rows = chunk_rows
-        self.local_compute = local_compute
-        self.strip_rows = strip_rows
-        self.unroll = unroll
-        self.shift_impl = shift_impl
-        self.interpret = interpret
 
     def _update(self, grid: Grid) -> Grid:
         prm = self.params
@@ -353,43 +278,18 @@ class StencilUpdate(StencilUpdateBase):
         r, k = tf.stencil_radius, tf.n_subiterations
 
         p = max(1, min(self.iters_per_pass, n or 1))
-        hp = halo_width(r, p, k)
-        m = cell_sublane_multiple(grid.arrays)
-        pallas = self.local_compute == "pallas"
-        look = round_up(hp, m) if pallas else hp
-        ch = self.chunk_rows or max(look, round_up(max(H // 8, 1), m))
-        if pallas:
-            ch = round_up(ch, m)  # aligned element windows + T | core
+        look = halo_width(r, p, k)
+        ch = self.chunk_rows or max(look, H // 8, 1)
         if ch < look:
             raise ValueError(
-                f"chunk_rows={ch} must be >= the (aligned) compound halo "
-                f"{look} (r*p*k={hp}); raise chunk_rows or lower "
-                f"iters_per_pass"
-            )
-
-        # Lane-align the storage width for the Pallas chunk kernel; the
-        # logical grid extent drives coordinate/halo semantics.
-        arrays = grid.arrays
-        Ws = round_up(W, 128) if pallas else W
-        if Ws != W:
-            halo_typed = jax.tree.map(
-                lambda hv, a: jnp.asarray(hv, a.dtype), halo_cell, arrays
-            )
-            arrays = jax.tree.map(
-                lambda a, hv: jnp.pad(
-                    a, ((0, 0), (0, Ws - W)), constant_values=hv
-                ),
-                arrays,
-                halo_typed,
+                f"chunk_rows={ch} must be >= the compound halo r*p*k={look}; "
+                f"raise chunk_rows or lower iters_per_pass"
             )
 
         offset = jnp.asarray(prm.iteration_offset, jnp.int32)
         tdv_aux = strategy.prepare(tf, int(prm.iteration_offset), n)
-        interpret = (
-            self.interpret if self.interpret is not None else should_interpret()
-        )
         out = _run_ring(
-            arrays,
+            grid.arrays,
             tf,
             halo_cell,
             offset,
@@ -402,12 +302,5 @@ class StencilUpdate(StencilUpdateBase):
             chunk_rows=ch,
             mesh=self.mesh,
             grid_range=(H, W),
-            local_compute=self.local_compute,
-            strip_rows=self.strip_rows,
-            unroll=self.unroll,
-            shift_impl=self.shift_impl,
-            interpret=interpret,
         )
-        if Ws != W:
-            out = jax.tree.map(lambda a: a[:, :W], out)
         return Grid(out)

@@ -3,7 +3,7 @@
 The HBM-regime backends are bandwidth-bound: per pass the grid moves
 ``(2 + halo_overhead)`` cell-sizes of HBM traffic regardless of the op mix
 (:mod:`..bench.model`). Storing f32 cells as bfloat16 halves that traffic —
-the TPU-native analog of the reference's memory-word packing
+the analog of the reference's memory-word packing
 (``StencilStream/internal/Helpers.hpp:42-44`` packs cells into power-of-two
 words to widen effective memory bandwidth; here the win comes from
 narrowing the stored element instead). Compute stays f32: every tap is
@@ -177,11 +177,9 @@ class CastStorageKernel:
         out = self.tf(cs)
         # Pass-through restoration: a field the inner kernel returns
         # UNCHANGED from the center tap (hotspot's invariant power plane)
-        # must stay the original storage-dtype value — an
-        # upcast->downcast round-trip would make the output var differ
-        # from the input var, defeating invariant-field elision in the
-        # fused kernels (measured round 4: hotspot bf16 0.825x of f32
-        # because the power plane was re-written every sub-step).
+        # must stay the original storage-dtype value, so the output var
+        # IS the input var and the field stays a visible pass-through
+        # instead of an upcast->downcast round-trip.
         raw_center = s[0, 0]
         up_center = cs[0, 0]
         out_leaves, treedef = jax.tree.flatten(out)

@@ -3,25 +3,26 @@ drivers (``examples/*/scripts/benchmark.jl``).
 
 Usage::
 
-    python -m stencilstream_tpu.bench max_perf hotspot --backend tiling
+    python -m stencilstream_tpu.bench max_perf hotspot
     python -m stencilstream_tpu.bench grid_scaling jacobi --variant jacobi5_general
     python -m stencilstream_tpu.bench max_perf fdtd
 
 Modes mirror the reference CLI (``benchmark.jl:22-40``):
 
-* ``max_perf`` — single large-grid run at the tuned config.
+* ``max_perf`` — single large-grid run.
 * ``grid_scaling`` — throughput across grid sizes (the reference's
   deep-grid-scaling sweep; produces the throughput-vs-size curve of
   ``README.md:76``).
 
 Results are persisted as ``metrics.<variant>.json`` (same contract as the
-reference harness) and summarized on stdout.
+reference harness) and summarized on stdout. Each names the device it ran
+on; on a GPU it also carries the roofline report against that card's
+published peaks (an unknown GPU is an error).
 """
 
 from __future__ import annotations
 
 import argparse
-import json
 import sys
 
 import numpy as np
@@ -124,9 +125,8 @@ def _convection_case(size, backend, backend_kwargs, folded=False):
         nerr=50, epsilon=1e-3, dmp=2.0,
     )
     # Default: the PRODUCTION kernel (the straight port with lean Err path —
-    # what convection.run drives for nerr-1 of every nerr iterations; its
-    # coordinate masks are LICM-hoisted for free, measured faster than the
-    # folded coordinate-plane variant). --folded benchmarks that variant.
+    # what convection.run drives for nerr-1 of every nerr iterations).
+    # --folded benchmarks the folded coordinate-plane variant.
     folded = folded and backend != "reference"
     lean = backend != "reference"
     if folded:
@@ -161,48 +161,10 @@ CASES = {
 }
 
 
-def _attach_configured_model(result, update, grid, backend, backend_kwargs,
-                             n_iterations, cell_bytes, flops):
-    """Replace the generic model report with one wired to the ACTUAL kernel
-    configuration (counted ops, exact strip geometry) — VERDICT r2 #5."""
-    from ..backends.base import resolve_halo
-    from .harness import model_inputs
-    from .model import TpuSpec, model_report
-
-    try:
-        params = update.get_params()
-        halo = resolve_halo(params.halo_value, grid)
-        mk, stats = model_inputs(
-            params.transition_function, grid, halo, backend, backend_kwargs,
-            n_iterations, result.walltime_s, flops, updater=update,
-        )
-        cells = grid.shape[0] * grid.shape[1]
-        result.model = model_report(
-            TpuSpec.detect(), cells, n_iterations, cell_bytes,
-            result.walltime_s, flops_per_cell=flops, **mk,
-        )
-        result.strip_kernel = stats
-    except Exception as e:  # keep the benchmark output robust
-        result.model["model_note"] = f"configured model unavailable: {e}"
-
-
 def main(argv=None) -> int:
-    import os
+    from ..utils.cache import enable_compile_cache
 
-    # Persistent compile cache: sweep/curve recording re-runs many sizes;
-    # without this every CLI invocation recompiles from scratch. Kept
-    # INSIDE the working tree (gitignored): the home cache directory is
-    # wiped between driver rounds.
-    os.environ.setdefault(
-        "JAX_COMPILATION_CACHE_DIR",
-        os.path.join(os.path.dirname(os.path.dirname(
-            os.path.dirname(os.path.abspath(__file__)))), ".jax_cache"),
-    )
-    os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-
-    from ..utils.platform import honor_jax_platforms_env
-
-    honor_jax_platforms_env()
+    enable_compile_cache()
 
     parser = argparse.ArgumentParser(prog="stencilstream-bench")
     parser.add_argument(
@@ -214,59 +176,32 @@ def main(argv=None) -> int:
         "the reference's multi-rank sweep, benchmark.jl:22-40)",
     )
     parser.add_argument("app", choices=sorted(CASES))
-    parser.add_argument("--backend", default="tiling")
+    parser.add_argument("--backend", default="auto")
     parser.add_argument("--variant", default=None, help="jacobi kernel variant")
     parser.add_argument("--size", type=int, default=None)
     parser.add_argument("--n-iterations", type=int, default=256)
     parser.add_argument("--samples", type=int, default=3)
-    parser.add_argument("--strip-rows", type=int, default=None)
-    parser.add_argument("--iters-per-pass", type=int, default=None)
-    parser.add_argument("--unroll", type=int, default=None)
     parser.add_argument(
-        "--shift-impl", choices=["concat", "roll"], default=None,
-        help="neighbor-shift lowering for the Pallas backends",
-    )
-    parser.add_argument(
-        "--window-mode", choices=["clamped", "extended", "linecache"],
-        default=None,
-        help="tiling strip discipline (linecache = zero-redundancy "
-        "sequential strips with a VMEM carry)",
+        "--iters-per-pass", type=int, default=None,
+        help="distributed/ring: iterations fused between halo exchanges",
     )
     parser.add_argument(
         "--folded", action="store_true",
         help="convection: benchmark the folded coordinate-plane kernel "
-        "variant instead of the production straight one (measured slower — "
-        "the straight kernel's masks are LICM-hoisted for free)",
-    )
-    parser.add_argument(
-        "--vmem-budget", type=int, default=None,
-        help="monotile: override the VMEM residency budget in bytes "
-        "(invariant-field elision can make grids past the estimate fit)",
+        "variant instead of the production straight one",
     )
     parser.add_argument("--out-dir", default=".")
     args = parser.parse_args(argv)
 
-    from .harness import run_benchmark, write_metrics
+    import jax
 
+    from .harness import run_benchmark, write_metrics
+    from .model import device_peak
+
+    peak = device_peak() if jax.devices()[0].platform == "gpu" else None
     backend_kwargs = {}
-    if args.backend in ("tiling", "distributed"):
-        if args.strip_rows:
-            backend_kwargs["strip_rows"] = args.strip_rows
-        if args.iters_per_pass:
-            backend_kwargs["iters_per_pass"] = args.iters_per_pass
-        if args.unroll:
-            backend_kwargs["unroll"] = args.unroll
-        if args.shift_impl:
-            backend_kwargs["shift_impl"] = args.shift_impl
-        if args.window_mode and args.backend == "tiling":
-            backend_kwargs["window_mode"] = args.window_mode
-    elif args.backend == "monotile":
-        if args.unroll:
-            backend_kwargs["unroll"] = args.unroll
-        if args.shift_impl:
-            backend_kwargs["shift_impl"] = args.shift_impl
-        if args.vmem_budget:
-            backend_kwargs["vmem_budget"] = args.vmem_budget
+    if args.iters_per_pass:
+        backend_kwargs["iters_per_pass"] = args.iters_per_pass
 
     case = CASES[args.app]
     case_kwargs = {}
@@ -275,51 +210,44 @@ def main(argv=None) -> int:
     if args.app == "convection" and args.folded:
         case_kwargs["folded"] = True
 
-    if args.mode == "strong_scaling":
-        import jax
+    def measure(variant, backend, kwargs, size):
+        grid, make, cell_bytes, flops = case(size, backend, kwargs, **case_kwargs)
+        update = make(args.n_iterations)
+        result = run_benchmark(
+            lambda: update(grid),
+            variant=variant,
+            grid_shape=grid.shape,
+            n_iterations=args.n_iterations,
+            cell_bytes=cell_bytes,
+            flops_per_cell=flops,
+            n_samples=args.samples,
+            peak=peak,
+        )
+        if args.app == "convection":
+            # Record which kernel variant this row measured (mirrors
+            # _convection_case's variant selection).
+            result.extra.update(
+                with_err=backend == "reference",
+                folded=args.folded and backend != "reference",
+            )
+        return result, write_metrics(result, args.out_dir)
 
+    if args.mode == "strong_scaling":
         from ..parallel import make_mesh
 
         size = args.size or 2048
-        n_dev = len(jax.devices())
-        runs = []
         n = 1
-        while n <= n_dev:
-            runs.append(n)
-            n *= 2
-        for n in runs:
-            mesh = make_mesh(n)
-            grid, make, cell_bytes, flops = case(
-                size, "distributed", dict(mesh=mesh, **backend_kwargs), **case_kwargs
+        while n <= len(jax.devices()):
+            result, path = measure(
+                f"{args.app}.distributed.{size}.n{n}", "distributed",
+                dict(mesh=make_mesh(n), **backend_kwargs), size,
             )
-            update = make(args.n_iterations)
-            # A silent oracle swap must never masquerade as an accelerated
-            # number (VERDICT round 1 #9).
-            update.fallback_to_reference = False
-            result = run_benchmark(
-                lambda: update(grid),
-                variant=f"{args.app}.distributed.{size}.n{n}",
-                grid_shape=grid.shape,
-                n_iterations=args.n_iterations,
-                cell_bytes=cell_bytes,
-                flops_per_cell=flops,
-                n_samples=args.samples,
-            )
-            _attach_configured_model(
-                result, update, grid, "distributed", backend_kwargs,
-                args.n_iterations, cell_bytes, flops,
-            )
-            if args.app == "convection":
-                # Record which kernel variant this row measured so the
-                # rendered tables can attach the ', lean Err' / ', folded'
-                # labels (ADVICE r4 #4) — mirrors _convection_case's flags.
-                result.extra.update(with_err=False, folded=args.folded)
-            path = write_metrics(result, args.out_dir)
             print(
                 f"{result.variant}: {result.cells_per_s / 1e9:.3f} GCell/s "
-                f"on {n} device(s) -> {path}"
+                f"on {n} {result.device['kind']} device(s) -> {path}"
             )
             print(f"Walltime: {result.walltime_s} s")
+            n *= 2
         return 0
 
     sizes = (
@@ -327,40 +255,16 @@ def main(argv=None) -> int:
         if args.mode == "max_perf"
         else [512, 1024, 2048, 4096, 8192]
     )
-
     for size in sizes:
-        grid, make, cell_bytes, flops = case(size, args.backend, backend_kwargs, **case_kwargs)
-        update = make(args.n_iterations)
-        # A silent oracle swap must never masquerade as an accelerated
-        # number (VERDICT round 1 #9).
-        update.fallback_to_reference = False
-        result = run_benchmark(
-            lambda: update(grid),
-            variant=f"{args.app}{'.' + args.variant if args.variant else ''}"
+        result, path = measure(
+            f"{args.app}{'.' + args.variant if args.variant else ''}"
             f".{args.backend}.{size}",
-            grid_shape=grid.shape,
-            n_iterations=args.n_iterations,
-            cell_bytes=cell_bytes,
-            flops_per_cell=flops,
-            n_samples=args.samples,
+            args.backend, backend_kwargs, size,
         )
-        _attach_configured_model(
-            result, update, grid, args.backend, backend_kwargs,
-            args.n_iterations, cell_bytes, flops,
-        )
-        if args.app == "convection":
-            # Record which kernel variant this row measured so the rendered
-            # tables can attach the ', lean Err' / ', folded' labels
-            # (ADVICE r4 #4) — mirrors _convection_case's variant selection.
-            result.extra.update(
-                with_err=args.backend == "reference",
-                folded=args.folded and args.backend != "reference",
-            )
-        path = write_metrics(result, args.out_dir)
         print(
             f"{result.variant}: {result.cells_per_s / 1e9:.2f} GCell/s "
-            f"({result.gflops:.0f} GFLOP/s), walltime {result.walltime_s:.3f} s "
-            f"-> {path}"
+            f"({result.gflops:.0f} GFLOP/s) on {result.device['kind']}, "
+            f"walltime {result.walltime_s:.3f} s -> {path}"
         )
         print(f"Walltime: {result.walltime_s} s")
     return 0

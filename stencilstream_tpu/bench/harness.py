@@ -3,9 +3,13 @@
 Port of the per-example ``benchmark.jl`` drivers
 (``examples/hotspot/scripts/benchmark.jl:22-90``): warmup run, N samples,
 minimum walltime, results written to ``metrics.<variant>.json``. Where the
-reference regex-scrapes ``Walltime: X s`` from app stdout, the TPU build
+reference regex-scrapes ``Walltime: X s`` from app stdout, this harness
 reads the updater's counters directly (``StencilUpdateBase.get_walltime``),
 but apps still *print* the same line so external scrapers keep working.
+
+Every result names the device it ran on. The model report, which divides
+the measured time by a device's published peaks, is attached only when the
+caller passes those peaks (:func:`.model.device_peak`).
 """
 
 from __future__ import annotations
@@ -15,92 +19,23 @@ import json
 import time
 from typing import Any, Callable
 
-from .model import TpuSpec, model_report
+from .model import DevicePeak, model_report
 
 __all__ = [
     "BenchmarkResult",
+    "device_info",
     "run_benchmark",
     "write_metrics",
-    "model_inputs",
 ]
 
 
-def model_inputs(tf, grid, halo_cell, backend, backend_kwargs, n_iterations,
-                 wall, flops_per_cell, updater=None):
-    """The ACTUAL kernel configuration for the analytic model (VERDICT r2
-    #5): the real ``iters_per_pass``, the exact halo overhead from the
-    strip geometry, and the counted vector-op mix rather than nominal
-    FLOPs. Returns ``(model_kwargs, strip_stats)`` — ``strip_stats`` is
-    None for non-strip backends.
-
-    Pass the ``updater`` that ran (after at least one update) so the
-    RESOLVED configuration is modeled — a requested ``window_mode`` or
-    strip geometry the backend downgraded (linecache eligibility, auto
-    config, transposition) must not be what the model reports
-    (ADVICE r3 #2)."""
+def device_info() -> dict:
+    """Platform, device kind and device count, as JAX reports them."""
     import jax
-    import jax.numpy as jnp
 
-    from .model import count_vector_ops, invariant_fields
-    from .profile import strip_kernel_stats
-
-    tdv0 = tf.get_time_dependent_value(jnp.asarray(0, jnp.int32))
-    kw = dict(radius=tf.stencil_radius,
-              n_subiterations=tf.n_subiterations, tdv=tdv0)
-    cell0 = jax.tree.map(lambda a: jnp.zeros((), a.dtype), grid.arrays)
-    ops = count_vector_ops(tf, cell0, halo_cell, **kw)
-    invariant = invariant_fields(tf, cell0, halo_cell, **kw)
-    field_bytes = [
-        jnp.dtype(a.dtype).itemsize for a in jax.tree.leaves(grid.arrays)
-    ]
-
-    if backend == "monotile":
-        # Whole run = one pass, grid VMEM-resident: one read + one write.
-        return (
-            dict(iters_per_pass=n_iterations, halo_overhead=0.0,
-                 ops_per_cell=ops),
-            None,
-        )
-    if backend not in ("tiling", "distributed"):
-        return dict(ops_per_cell=ops), None
-    resolved = getattr(updater, "resolved_config", None) or {}
-    p = (resolved.get("iters_per_pass")
-         or backend_kwargs.get("iters_per_pass") or 1)
-    strip_rows = (resolved.get("strip_rows")
-                  or backend_kwargs.get("strip_rows") or 256)
-    window_mode = (resolved.get("window_mode")
-                   or backend_kwargs.get("window_mode", "clamped"))
-    shape = grid.shape
-    if resolved.get("transposed"):
-        shape = (shape[1], shape[0])
-    stats = strip_kernel_stats(
-        shape,
-        field_bytes,
-        invariant,
-        radius=tf.stencil_radius,
-        n_subiterations=tf.n_subiterations,
-        iters_per_pass=p,
-        strip_rows=strip_rows,
-        n_iterations=n_iterations,
-        measured_walltime=wall,
-        flops_per_cell=flops_per_cell,
-        window_mode=window_mode,
-        panel_cols=resolved.get("panel_cols"),
-    )
-    # Exact per-pass traffic from the kernel geometry for the memory term;
-    # window redundancy for the compute term.
-    cells = grid.shape[0] * grid.shape[1]
-    cell_bytes = sum(field_bytes)
-    halo_overhead = (
-        (stats["per_pass"]["hbm_read_bytes"]
-         + stats["per_pass"]["hbm_write_bytes"])
-        / (cells * cell_bytes)
-        - 2.0
-    )
-    mk = dict(iters_per_pass=p, halo_overhead=max(halo_overhead, 0.0),
-              compute_overhead=stats["per_pass"]["redundancy"] - 1.0,
-              ops_per_cell=ops)
-    return mk, stats
+    d = jax.devices()[0]
+    return {"platform": d.platform, "kind": d.device_kind,
+            "count": len(jax.devices())}
 
 
 @dataclasses.dataclass
@@ -117,18 +52,15 @@ class BenchmarkResult:
     samples_s: list[float]
     cells_per_s: float
     gflops: float
-    model: dict
-    strip_kernel: dict | None = None
+    device: dict
+    model: dict | None = None
     #: Case-specific top-level row fields (e.g. convection's ``with_err`` /
-    #: ``folded`` kernel-variant flags — ``tables.render_rows`` reads them
-    #: off the row to label lean-Err rows; ADVICE r4 #4).
+    #: ``folded`` kernel-variant flags).
     extra: dict = dataclasses.field(default_factory=dict)
 
     def to_json(self) -> dict:
         d = dataclasses.asdict(self)
         d["grid_shape"] = list(self.grid_shape)
-        if d.get("strip_kernel") is None:
-            d.pop("strip_kernel", None)
         d.update(d.pop("extra", {}))
         return d
 
@@ -143,11 +75,12 @@ def run_benchmark(
     flops_per_cell: float = 0.0,
     n_samples: int = 3,
     warmup: bool = True,
-    spec: TpuSpec | None = None,
+    peak: DevicePeak | None = None,
     model_kwargs: dict | None = None,
 ) -> BenchmarkResult:
     """Warmup + ``n_samples`` timed runs of ``run_once`` (which must block
-    until device completion); minimum wins, as in the reference protocol."""
+    until device completion); minimum wins, as in the reference protocol.
+    With ``peak``, the result carries the roofline model report."""
     if warmup:
         run_once()
     samples = []
@@ -157,7 +90,6 @@ def run_benchmark(
         samples.append(time.perf_counter() - t0)
     wall = min(samples)
     cells = grid_shape[0] * grid_shape[1]
-    spec = spec or TpuSpec.detect()
     return BenchmarkResult(
         variant=variant,
         grid_shape=grid_shape,
@@ -168,8 +100,9 @@ def run_benchmark(
         samples_s=samples,
         cells_per_s=cells * n_iterations / wall,
         gflops=cells * n_iterations * flops_per_cell / wall / 1e9,
-        model=model_report(
-            spec,
+        device=device_info(),
+        model=None if peak is None else model_report(
+            peak,
             cells,
             n_iterations,
             cell_bytes,
@@ -182,11 +115,8 @@ def run_benchmark(
 
 def write_metrics(result: BenchmarkResult, directory: str = ".") -> str:
     """Persist as ``metrics.<variant>.json`` (the reference's output file
-    contract, ``examples/hotspot/scripts/benchmark.jl`` tail).
-
-    Each file carries a ``recorded_utc`` session stamp: the chip drifts
-    ±8% between sessions, so cross-artifact comparisons must know which
-    recording session a number came from (VERDICT r4 weak #5)."""
+    contract, ``examples/hotspot/scripts/benchmark.jl`` tail), stamped
+    with the time it was recorded."""
     import os
 
     d = result.to_json()

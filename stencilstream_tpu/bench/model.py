@@ -1,17 +1,15 @@
-"""Analytic performance model for stencil updates on TPU.
+"""Device peaks and the analytic roofline model.
 
-Port of the reference's model math (``scripts/benchmark-common.jl``):
+Port of the reference's model math (``scripts/benchmark-common.jl``): its GPU
+roofline is ``cells/s = 0.8 * HBM_BW / (2 * cell_size)`` — one read + one
+write per cell per iteration (:148-151,197-199). Temporal blocking (``p``
+fused iterations per memory round trip) divides the memory time per
+iteration by ``p / (1 + halo_overhead)``; the f32 rate outside the tensor
+cores bounds arithmetic-heavy kernels (no app does a matrix product).
 
-* the reference bounds effective clock by link/memory width and models
-  runtime as pipeline latency + steady-state trip count (:75-167);
-* its GPU roofline is ``cells/s = 0.8 * HBM_BW / (2 * cell_size)`` — one
-  read + one write per cell per iteration (:148-151,197-199).
-
-On TPU the same roofline applies per pass, and temporal blocking (p fused
-iterations per HBM round trip) multiplies it by ``p / (1 + overhead)`` where
-overhead is the redundant halo fraction — the strip-tiling analog of the
-reference's tile-halo trip-count model (:126-167). A compute ceiling from the
-VPU bounds arithmetic-heavy kernels.
+The peaks are published data-sheet figures, keyed by the device kind JAX
+reports (``jax.Device.device_kind``). A device that is not in the table is
+an error: a measured time is never divided by a guessed peak.
 """
 
 from __future__ import annotations
@@ -19,505 +17,129 @@ from __future__ import annotations
 import dataclasses
 
 __all__ = [
-    "TpuSpec",
+    "DevicePeak",
+    "PEAKS",
+    "device_peak",
     "roofline_cells_per_s",
     "predicted_runtime",
     "model_report",
-    "count_vector_ops",
 ]
+
+#: Achievable fraction of peak memory bandwidth (the reference's 0.8
+#: derate, benchmark-common.jl:148).
+HBM_EFFICIENCY = 0.8
 
 
 @dataclasses.dataclass(frozen=True)
-class TpuSpec:
-    """Per-chip hardware envelope. Defaults: TPU v5e (v5 lite)."""
+class DevicePeak:
+    """Published peak rates of one device."""
 
-    name: str = "tpu-v5e"
-    hbm_bandwidth: float = 819e9  # bytes/s
-    hbm_efficiency: float = 0.8  # achievable fraction (matches the
-    # reference's 0.8 derate, benchmark-common.jl:148)
-    vpu_flops: float = 3.9e12  # f32 vector ops/s (VPU, not MXU)
-    #: Achievable full-window vector-op issue rate (ops/s) for Mosaic-
-    #: scheduled stencil kernels — the TPU analog of the reference's
-    #: synthesized-clock model constant (``benchmark-common.jl:33-36``).
-    #: CALIBRATED, not a datasheet number, against the round-4 recording
-    #: session with VARIANT-ONLY op counts (:func:`count_vector_ops` —
-    #: loop-invariant chains are hoisted by Mosaic and cost ~nothing per
-    #: iteration): jacobi5 monotile sustains 224 GCell/s x 13 variant ops
-    #: = 2.91e12 slot/s, hotspot 173 x 17 = 2.94e12, fdtd 105 x 36 =
-    #: 3.79e12, folded convection 22.4 (computed-cell) x 153 = 3.43e12 —
-    #: a +-13% band whose geometric mean is 3.3e12, just under the 3.9e12
-    #: VPU peak. With this constant every benchmarked row's
-    #: ``model_accuracy`` lands in [0.80, 1.15].
-    vpu_vector_ops: float = 3.3e12
-    #: Whether ``vpu_vector_ops`` was calibrated on THIS chip generation.
-    #: Only the v5e constant is measured; other entries scale it by the
-    #: datasheet VPU-peak ratio (same achievable fraction assumed) and are
-    #: marked uncalibrated so their ``model_accuracy`` is read as an
-    #: estimate, not a gauge (VERDICT r4 weak #7).
-    vector_ops_calibrated: bool = True
-    vmem_bytes: int = 128 * 1024 * 1024
-
-    @staticmethod
-    def _scaled(name: str, hbm_bandwidth: float, vpu_flops: float) -> "TpuSpec":
-        # Scale the calibrated v5e issue rate by the VPU-peak ratio: the
-        # achievable fraction (3.3/3.9 = 0.85 of peak) is assumed, not
-        # measured, on these chips.
-        return TpuSpec(
-            name=name,
-            hbm_bandwidth=hbm_bandwidth,
-            vpu_flops=vpu_flops,
-            vpu_vector_ops=vpu_flops * (3.3 / 3.9),
-            vector_ops_calibrated=False,
-        )
-
-    @staticmethod
-    def detect() -> "TpuSpec":
-        try:
-            import jax
-
-            kind = jax.devices()[0].device_kind.lower()
-        except Exception:
-            return TpuSpec()
-        if "v5 lite" in kind or "v5e" in kind:
-            return TpuSpec()
-        if "v5p" in kind or "v5" in kind:
-            return TpuSpec._scaled("tpu-v5p", 2765e9, 11.7e12)
-        if "v4" in kind:
-            return TpuSpec._scaled("tpu-v4", 1228e9, 8.9e12)
-        if "v6" in kind:
-            return TpuSpec._scaled("tpu-v6e", 1640e9, 7.9e12)
-        return TpuSpec(name=kind, vector_ops_calibrated=False)
+    name: str
+    hbm_bytes_per_s: float
+    f32_flops: float
+    source: str
 
 
-def roofline_cells_per_s(spec: TpuSpec, cell_bytes: int) -> float:
-    """Single-pass HBM roofline: one read + one write per cell per iteration
-    (the reference's GPU model, ``benchmark-common.jl:148-151``)."""
-    return spec.hbm_efficiency * spec.hbm_bandwidth / (2.0 * cell_bytes)
+_H100_SXM = DevicePeak(
+    name="NVIDIA H100 SXM",
+    hbm_bytes_per_s=3.35e12,
+    f32_flops=67e12,
+    source="NVIDIA H100 Tensor Core GPU data sheet, SXM part: 3.35 TB/s "
+    "HBM3, 67 TFLOP/s FP32 (non-tensor), at the 700 W power limit",
+)
+
+#: Keyed by ``jax.Device.device_kind``.
+PEAKS: dict[str, DevicePeak] = {
+    "NVIDIA H100 80GB HBM3": _H100_SXM,
+}
+
+
+def device_peak(device_kind: str | None = None) -> DevicePeak:
+    """Peak rates of ``device_kind`` (default: the first visible device).
+
+    Raises :class:`KeyError` for a device the table does not hold."""
+    if device_kind is None:
+        import jax
+
+        device_kind = jax.devices()[0].device_kind
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peak for device kind {device_kind!r}; "
+            f"known: {sorted(PEAKS)}"
+        ) from None
+
+
+def roofline_cells_per_s(peak: DevicePeak, cell_bytes: int,
+                         efficiency: float = HBM_EFFICIENCY) -> float:
+    """Single-pass memory roofline: one read + one write per cell per
+    iteration (the reference's GPU model, ``benchmark-common.jl:148-151``)."""
+    return efficiency * peak.hbm_bytes_per_s / (2.0 * cell_bytes)
 
 
 def predicted_runtime(
-    spec: TpuSpec,
+    peak: DevicePeak,
     grid_cells: int,
     n_iterations: int,
     cell_bytes: int,
     *,
     iters_per_pass: int = 1,
     halo_overhead: float = 0.0,
-    compute_overhead: float | None = None,
     flops_per_cell: float = 0.0,
-    ops_per_cell: float = 0.0,
+    efficiency: float = HBM_EFFICIENCY,
 ) -> float:
     """Model runtime for a temporally-blocked run.
 
     Per pass of ``p = iters_per_pass`` iterations the grid moves
-    ``(2 + halo_overhead)`` cell-sizes of HBM traffic (read + write + the
-    redundant halo re-read) and computes ``(1 + compute_overhead)`` windows'
-    worth of ``p * ops_per_cell`` vector-op slots per cell (ops counted
-    mechanically from the traced kernel, :func:`count_vector_ops`) at the
-    calibrated achievable issue rate — falling back to nominal FLOPs at VPU
-    peak when no op count is supplied. Runtime per pass = max(memory,
-    compute) — the bandwidth/compute roofline crossover, the TPU analog of
-    the reference's effective-clock bound (``benchmark-common.jl:75-96``).
+    ``(2 + halo_overhead)`` cell-sizes of memory traffic (read + write + the
+    redundant halo re-read) and computes ``(1 + halo_overhead)`` windows'
+    worth of ``p * flops_per_cell`` at the f32 peak. Runtime per pass =
+    max(memory, compute) — the roofline crossover, the analog of the
+    reference's effective-clock bound (``benchmark-common.jl:75-96``).
     """
     p = max(iters_per_pass, 1)
     n_passes = -(-n_iterations // p)
-    if compute_overhead is None:
-        compute_overhead = halo_overhead
     bytes_per_pass = grid_cells * cell_bytes * (2.0 + halo_overhead)
-    mem_time = bytes_per_pass / (spec.hbm_efficiency * spec.hbm_bandwidth)
-    if ops_per_cell:
-        compute_time = (
-            grid_cells * (1.0 + compute_overhead) * p * ops_per_cell
-            / spec.vpu_vector_ops
-        )
-    elif flops_per_cell:
-        compute_time = (
-            grid_cells * (1.0 + compute_overhead) * p * flops_per_cell
-            / spec.vpu_flops
-        )
-    else:
-        compute_time = 0.0
+    mem_time = bytes_per_pass / (efficiency * peak.hbm_bytes_per_s)
+    compute_time = (
+        grid_cells * (1.0 + halo_overhead) * p * flops_per_cell / peak.f32_flops
+    )
     return n_passes * max(mem_time, compute_time)
 
 
-def count_vector_ops(
-    tf,
-    cell_example,
-    halo_cell,
-    *,
-    radius: int,
-    n_subiterations: int,
-    tdv=None,
-    window: tuple[int, int] = (256, 1024),
-    variant_only: bool = True,
-) -> float:
-    """Count the full-window vector ops one fused iteration (all ``k``
-    sub-steps) of ``tf`` emits — the mechanical input to the compute-ceiling
-    model. Nominal FLOPs/cell (the reference's hard-coded per-app constants,
-    ``examples/*/scripts/benchmark.jl``) undercount the VPU's real work:
-    neighbor shifts, halo selects and mask compares all occupy issue slots.
-    Traces the same ``fused_substep`` the kernels run (aligned fast path)
-    and counts equations whose output is window-sized, recursing into
-    jnp-internal pjit wrappers; scalar broadcasts are excluded (folded into
-    consumers by Mosaic).
-
-    ``variant_only`` (default): count only equations whose value DEPENDS on
-    a loop-VARIANT input — a variant window field, the iteration index, or
-    the TDV. Chains fed purely by loop-invariant fields (FDTD's coefficient
-    planes, convection's folded mask/selector planes: their shifts, selects
-    and coefficient arithmetic) are hoisted out of the per-iteration loop
-    by Mosaic's LICM (and by our own strip-kernel LICM), so they cost one
-    evaluation per PASS, amortized by ``iters_per_pass`` — counting them
-    per iteration overstated convection's per-iteration op load 3x and made
-    the round-3 model under-predict every invariant-heavy row.
-
-    Ops are WEIGHTED by element width: the VPU's lanes are 32-bit, and ops
-    on narrower elements process packed sub-lanes — a bf16 op moves 2x the
-    elements per issue slot, so it charges 0.5 slots (int8/bool: 0.25);
-    f64 charges 2. ``convert_element_type`` is excluded like broadcasts
-    (Mosaic fuses dtype converts into the producing/consuming op). Both
-    rules validated by the round-4 bf16-storage A/B: jacobi bf16 storage
-    measures 1.22x its f32 twin, exactly the weighted model's 13 -> 11
-    slots plus the halved memory share; unweighted counting would predict
-    bf16 SLOWER (taps + converts) and flag the row as a model outlier."""
-    import jax
-    import jax.numpy as jnp
-
-    from ..backends.fused import fused_substep
-
-    h, w = window
-    full = h * w
-    example = jax.tree.map(
-        lambda a: jax.ShapeDtypeStruct((h, w), jnp.asarray(a).dtype),
-        cell_example,
-    )
-    i0 = jnp.asarray(0, jnp.int32)
-
-    def step(window_tree, i_abs, tdv_v):
-        out, _, _ = fused_substep(
-            window_tree,
-            tf,
-            halo_cell,
-            jnp.asarray(0, jnp.int32),
-            jnp.asarray(0, jnp.int32),
-            (h, w),
-            i_abs,
-            tdv_v,
-            True,
-            radius=radius,
-            n_subiterations=n_subiterations,
-            row_mode="pad",
-            col_mode="pad",
-            oog_mask=False,
-        )
-        return out
-
-    closed = jax.make_jaxpr(step)(example, i0, tdv)
-    jaxpr = closed.jaxpr
-    n_fields = len(jax.tree.leaves(example))
-    win_invars = jaxpr.invars[:n_fields]
-
-    if variant_only:
-        # Loop-invariant fields: output var IS the input var.
-        invariant = [o is iv for o, iv in zip(jaxpr.outvars, win_invars)]
-        if all(invariant):
-            invariant = [False] * n_fields
-        seed = {
-            iv for iv, inv in zip(win_invars, invariant) if not inv
-        } | set(jaxpr.invars[n_fields:])  # i_abs + tdv leaves
-    else:
-        seed = set(jaxpr.invars)
-
-    from jax._src.core import Literal
-
-    def count(jx, variant: set) -> float:
-        n = 0.0
-        for eqn in jx.eqns:
-            dep = any(
-                (not isinstance(v, Literal)) and v in variant
-                for v in eqn.invars
-            )
-            sub = eqn.params.get("jaxpr") or eqn.params.get("call_jaxpr")
-            if hasattr(sub, "jaxpr") or hasattr(sub, "eqns"):
-                inner = sub.jaxpr if hasattr(sub, "jaxpr") else sub
-                inner_variant = {
-                    siv
-                    for siv, ov in zip(inner.invars, eqn.invars)
-                    if (not isinstance(ov, Literal)) and ov in variant
-                }
-                n += count(inner, inner_variant)
-                # Conservatively: any output of a variant-fed call is variant.
-                if dep:
-                    variant.update(eqn.outvars)
-                continue
-            if dep:
-                variant.update(eqn.outvars)
-            if eqn.primitive.name in ("broadcast_in_dim", "convert_element_type"):
-                continue
-            big = [
-                v for v in eqn.outvars
-                if getattr(v.aval, "size", 0) >= full
-            ]
-            if dep and big:
-                n += jnp.dtype(big[0].aval.dtype).itemsize / 4
-        return n
-
-    return count(jaxpr, set(seed))
-
-
-def invariant_fields(
-    tf,
-    cell_example,
-    halo_cell,
-    *,
-    radius: int,
-    n_subiterations: int,
-    tdv=None,
-) -> list[bool]:
-    """Which cell fields one fused iteration provably leaves untouched
-    (output var IS the input var in the jaxpr) — the same detection the
-    Pallas backends use to elide carries and HBM write streams
-    (:class:`..backends.strip_pass.StripPass`). Used by the bench model to
-    count write bytes exactly."""
-    import jax
-    import jax.numpy as jnp
-
-    from ..backends.fused import fused_substep
-
-    example = jax.tree.map(
-        lambda a: jax.ShapeDtypeStruct((64, 256), jnp.asarray(a).dtype),
-        cell_example,
-    )
-
-    def step(window_tree):
-        out, _, _ = fused_substep(
-            window_tree,
-            tf,
-            halo_cell,
-            jnp.asarray(0, jnp.int32),
-            jnp.asarray(0, jnp.int32),
-            (64, 256),
-            jnp.asarray(0, jnp.int32),
-            tdv,
-            True,
-            radius=radius,
-            n_subiterations=n_subiterations,
-            row_mode="pad",
-            col_mode="pad",
-            oog_mask=False,
-        )
-        return out
-
-    closed = jax.make_jaxpr(step)(example)
-    n_fields = len(jax.tree.leaves(example))
-    invars = closed.jaxpr.invars[:n_fields]
-    flags = [o is iv for o, iv in zip(closed.jaxpr.outvars, invars)]
-    if all(flags):
-        flags = [False] * n_fields  # degenerate: backends keep one output
-    return flags
-
-
 def model_report(
-    spec: TpuSpec,
+    peak: DevicePeak,
     grid_cells: int,
     n_iterations: int,
     cell_bytes: int,
     measured_walltime: float,
     *,
     flops_per_cell: float = 0.0,
-    ops_per_cell: float = 0.0,
     **model_kwargs,
 ) -> dict:
     """Measured vs modeled, in the reference's report vocabulary
-    (``benchmark-common.jl:124-173``): ``measured_throughput``,
-    ``model_accuracy`` (measured/modeled — meaningful only when the caller
-    supplies the actual configuration: ``iters_per_pass``, the exact
-    ``halo_overhead`` from the kernel geometry, and the counted
-    ``ops_per_cell``), ``occupancy`` (measured vs single-pass roofline),
-    plus ``vpu_utilization`` (useful FLOP rate / VPU peak — the efficiency
-    metric regressions are judged by round-over-round, VERDICT round 1
-    #10)."""
+    (``benchmark-common.jl:124-173``): ``model_accuracy`` (measured /
+    modeled), ``occupancy_vs_roofline`` (measured vs the single-pass
+    roofline) and ``flop_utilization`` (useful FLOP rate / f32 peak)."""
     measured = grid_cells * n_iterations / measured_walltime
     modeled_t = predicted_runtime(
-        spec,
+        peak,
         grid_cells,
         n_iterations,
         cell_bytes,
         flops_per_cell=flops_per_cell,
-        ops_per_cell=ops_per_cell,
         **model_kwargs,
     )
     modeled = grid_cells * n_iterations / modeled_t if modeled_t else float("inf")
-    roof = roofline_cells_per_s(spec, cell_bytes)
-    report = {
-        "hardware": spec.name,
+    roof = roofline_cells_per_s(peak, cell_bytes)
+    return {
+        "hardware": peak.name,
+        "peak_source": peak.source,
         "measured_cells_per_s": measured,
         "modeled_cells_per_s": modeled,
         "model_accuracy": measured / modeled if modeled else 0.0,
         "single_pass_roofline_cells_per_s": roof,
         "occupancy_vs_roofline": measured / roof,
-        "vpu_utilization": measured * flops_per_cell / spec.vpu_flops,
+        "flop_utilization": measured * flops_per_cell / peak.f32_flops,
     }
-    if ops_per_cell:
-        report["counted_ops_per_cell"] = ops_per_cell
-    return report
-
-
-def ici_exchange_report(
-    spec: TpuSpec,
-    mesh_shape: tuple[int, int],
-    grid_shape: tuple[int, int],
-    cell_bytes: int,
-    *,
-    radius: int,
-    iters_per_pass: int,
-    n_subiterations: int = 1,
-    ici_bandwidth: float = 45e9,
-    sublane_multiple: int = 8,
-    moved_col_width: int | None = None,
-) -> dict:
-    """Per-pass ICI halo-exchange traffic model for the distributed backend
-    (VERDICT r2 missing #6: quantify BEFORE real-pod rounds).
-
-    The 2D-mesh Pallas path STORES a lane-tile-aligned column halo —
-    ``round_up(hp, 128)`` per side (``distributed._col_halo_width``;
-    unaligned lane offsets are a Mosaic performance cliff) — but since
-    round 4 it MOVES only the semantically needed ``hp`` columns over ICI,
-    packed lane-dense, and fills the rest of the frame locally
-    (:func:`..parallel.exchange_halo` with ``payload``; the reference's
-    link layer moves exactly the needed payload too,
-    ``internal/DualIOPipeKernels.hpp:44-90``). The round-3 model quantified
-    the pre-fix inflation at 8x / ~97% of a pass's HBM time on a (2,4)
-    mesh at 8192^2.
-
-    ``moved_col_width`` is the column width the exchange ACTUALLY moves per
-    side, as observed from the traced program — e.g.
-    :func:`traced_col_payload_width`, which extracts it from the
-    ``ppermute`` operands of a real :func:`..parallel.exchange_halo` trace.
-    Defaults to the needed ``hp`` (the post-r4 packed payload);
-    ``col_inflation = moved / needed`` is derived from it, so a regression
-    that reintroduces frame-width transfers shows up as ``col_inflation >
-    1`` when the caller feeds the traced width (the jaxpr-level ppermute
-    payload test in ``tests/test_bench.py`` guards the trace itself).
-
-    ``sublane_multiple`` is the row-halo storage alignment — 8 for f32
-    cells, 16 for bf16, 32 for int8/bool (``strip_pass.
-    cell_sublane_multiple``); rows ride ICI at the stored aligned width
-    (full-width row slices are already lane-dense; the alignment pad is
-    ``< m`` rows).
-
-    * ``row_bytes`` / ``col_bytes`` — per-device per-pass exchange volume
-      (both directions) on each axis, as moved over ICI;
-    * ``col_stored_bytes`` — what the column exchange WOULD move if the
-      whole stored frame were transferred (the round-3 defect);
-    * ``col_inflation`` — moved/needed column ratio (1.0 after the fix);
-    * ``exchange_time_s`` — serial lower bound at ``ici_bandwidth``
-      (per-link, per-direction; v5e ~45 GB/s);
-    * ``exchange_fraction`` — exchange time over the pass's HBM time, the
-      decision metric for halo-exchange-per-pass vs redundant-compute.
-    """
-    from ..backends.pallas_util import round_up
-
-    ny, nx = mesh_shape
-    H, W = grid_shape
-    m = sublane_multiple
-    hp = radius * iters_per_pass * n_subiterations
-    hpm = round_up(hp, m)
-    col_stored = round_up(hp, 128) if nx > 1 else 0
-    shard_h, shard_w = H // ny, W // nx
-    row_bytes = (2 * hpm * shard_w * cell_bytes) if ny > 1 else 0
-    # Columns are sliced to the hp payload and packed lane-dense before the
-    # ppermute; the slice spans the row-extended block (shard_h + 2*hpm).
-    moved = hp if moved_col_width is None else moved_col_width
-    col_rows = shard_h + (2 * hpm if ny > 1 else 0)
-    col_bytes = (2 * moved * col_rows * cell_bytes) if nx > 1 else 0
-    col_stored_bytes = (2 * col_stored * col_rows * cell_bytes) if nx > 1 else 0
-    shard_bytes = shard_h * shard_w * cell_bytes
-    hbm_time = 2.0 * shard_bytes / (spec.hbm_efficiency * spec.hbm_bandwidth)
-    exchange_time = (row_bytes + col_bytes) / ici_bandwidth
-    return {
-        "row_bytes": row_bytes,
-        "col_bytes": col_bytes,
-        "col_stored_bytes": col_stored_bytes,
-        "col_inflation": (moved / hp) if (nx > 1 and hp) else 1.0,
-        "exchange_time_s": exchange_time,
-        "exchange_fraction": exchange_time / hbm_time if hbm_time else 0.0,
-    }
-
-
-def traced_col_payload_width(
-    mesh_shape: tuple[int, int],
-    shard_shape: tuple[int, int],
-    *,
-    radius: int,
-    iters_per_pass: int,
-    n_subiterations: int = 1,
-    sublane_multiple: int = 8,
-) -> int:
-    """The column width per side the exchange ACTUALLY moves over ICI,
-    measured from the ``ppermute`` operands of a traced
-    :func:`..parallel.exchange_halo` on a real device mesh — the live input
-    for :func:`ici_exchange_report`'s ``moved_col_width`` (VERDICT r4 weak
-    #6: the gauge must be able to move). Derivation: the widest column-axis
-    ppermute operand carries ``col_rows * moved_width`` elements (packed
-    lane-dense by ``parallel._pack_lanes``, so up to one 8x128 tile of tail
-    padding — ceil-divided away when ``col_rows > 1024``); rows are
-    excluded by their distinct operand size (``pay_r x shard_w``, moved
-    unpacked at the stored shard width). Needs ``ny*nx`` visible devices
-    (the virtual CPU mesh in tests)."""
-    import jax
-    import numpy as np
-    from jax.sharding import Mesh
-    from jax.sharding import PartitionSpec as P
-
-    from ..backends.pallas_util import round_up
-    from ..parallel import exchange_halo
-
-    ny, nx = mesh_shape
-    if nx <= 1:
-        return 0
-    m = sublane_multiple
-    hp = radius * iters_per_pass * n_subiterations
-    hpm = round_up(hp, m)
-    chm = round_up(hp, 128)
-    sh, sw = shard_shape
-    block = jax.ShapeDtypeStruct((sh, sw), jax.numpy.float32)
-
-    devices = np.array(jax.devices()[: ny * nx]).reshape(ny, nx)
-    mesh = Mesh(devices, ("dy", "dx"))
-
-    def traced(a):
-        return exchange_halo(
-            {"a": a},
-            (hpm if ny > 1 else 0, chm),
-            axis_names=("dy", "dx"),
-            axis_sizes=(ny, nx),
-            payload=(hpm, hp),
-        )["a"]
-
-    jaxpr = jax.make_jaxpr(
-        jax.shard_map(traced, mesh=mesh, in_specs=P(), out_specs=P(),
-                      check_vma=False)
-    )(block)
-
-    sizes: list[int] = []
-
-    def walk(jx):
-        for eqn in jx.eqns:
-            sub = eqn.params.get("jaxpr") or eqn.params.get("call_jaxpr")
-            if sub is not None:
-                walk(sub.jaxpr if hasattr(sub, "jaxpr") else sub)
-            if eqn.primitive.name == "ppermute":
-                for v in eqn.invars:
-                    if getattr(getattr(v, "aval", None), "shape", None):
-                        sizes.append(v.aval.size)
-
-    walk(jaxpr.jaxpr)
-    row_payload_size = hpm * sw  # row exchanges ride at stored shard width
-    col_sizes = [s for s in sizes if s != row_payload_size or ny == 1]
-    if not col_sizes:
-        return 0
-    # Column slices span the row-extended block; packed payload is
-    # col_rows * width elements, tile-padded upward.
-    col_rows = sh + (2 * hpm if ny > 1 else 0)
-    return -(-max(col_sizes) // col_rows)

@@ -1,33 +1,21 @@
-"""Profiler hooks and kernel-metric extraction.
-
-The TPU analog of the reference's offline profiling pipeline — AOCL
-``profile.json`` Gantt rendering (``scripts/gantt_of_profile.jl:16-37``) and
-Nsight Compute metric extraction (``scripts/benchmark-common.jl:229-282``):
-
-* :func:`trace` / :func:`annotate` capture ``jax.profiler`` traces
-  (Perfetto/TensorBoard) exposing per-kernel walltime, HBM traffic, overlap.
-* :func:`strip_kernel_stats` EXTRACTS the reference's ncu-style metrics
-  (per-pass DRAM bytes, achieved bandwidth, occupancy/utilization) for the
-  tiling/distributed strip kernel. Where ncu must *measure* traffic, Pallas
-  kernels have fully static DMA shapes, so the per-pass byte counts are
-  derived exactly from the kernel geometry; combining them with a measured
-  walltime yields achieved HBM bandwidth and VPU utilization — the
-  ``occupancy``/``model_accuracy`` fields of the reference's report
-  (``benchmark-common.jl:171-173``, :229-282).
+"""Profiler hooks: ``jax.profiler`` trace capture, the analog of the
+reference's offline profiling pipeline (AOCL ``profile.json`` Gantt
+rendering, ``scripts/gantt_of_profile.jl:16-37``, and Nsight extraction,
+``scripts/benchmark-common.jl:229-282``).
 """
 
 from __future__ import annotations
 
 import contextlib
 
-__all__ = ["trace", "annotate", "strip_kernel_stats"]
+__all__ = ["trace", "annotate"]
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/stencilstream-trace"):
+def trace(log_dir: str):
     """Capture a profiler trace of the enclosed block::
 
-        with bench.profile.trace("/tmp/trace"):
+        with bench.profile.trace("chiprun_out/trace"):
             update(grid).block_until_ready()
     """
     import jax
@@ -45,114 +33,3 @@ def annotate(name: str):
     import jax
 
     return jax.profiler.TraceAnnotation(name)
-
-
-def strip_kernel_stats(
-    grid_shape: tuple[int, int],
-    cell_field_bytes: list[int],
-    invariant: list[bool],
-    *,
-    radius: int,
-    n_subiterations: int,
-    iters_per_pass: int,
-    strip_rows: int,
-    n_iterations: int,
-    measured_walltime: float | None = None,
-    flops_per_cell: float = 0.0,
-    spec=None,
-    window_mode: str = "clamped",
-    panel_cols: int | None = None,
-) -> dict:
-    """Exact per-pass kernel metrics for the strip (tiling) kernel.
-
-    Args mirror the StripPass geometry: ``cell_field_bytes`` is the per-field
-    bytes/cell list and ``invariant`` marks fields whose carry/write is
-    elided (their HBM write stream does not exist). Returns per-pass and
-    whole-run byte/flop counts; with ``measured_walltime``, also achieved
-    bandwidth, VPU utilization and compute/memory balance.
-
-    ``window_mode="linecache"`` uses the zero-redundancy geometry of
-    :class:`~..backends.line_cache.LineCachePass`: non-overlapping stride-T
-    windows plus the two B-row band fixes per pass.
-    """
-    from ..backends.fused import halo_width
-    from ..backends.pallas_util import round_up
-    from .model import TpuSpec
-
-    H, W = grid_shape
-    m = 8
-    hp = halo_width(radius, iters_per_pass, n_subiterations)
-    hpm = round_up(hp, m)
-    Ws = round_up(W, 128)
-    cell_bytes = sum(cell_field_bytes)
-    out_bytes_per_cell = sum(
-        b for b, inv in zip(cell_field_bytes, invariant) if not inv
-    )
-    n_passes = -(-n_iterations // iters_per_pass)
-
-    if window_mode == "panels":
-        # Width-split (both orientations too wide): n_panels extended-mode
-        # panel windows per strip row, each re-reading a 2x128-column halo.
-        chp = 128
-        T = max(strip_rows, hpm)
-        Hs = round_up(max(H, T + 2 * hpm), T)
-        n_strips = Hs // T
-        pc = panel_cols or Ws
-        n_panels = -(-W // pc)
-        Wp = pc + 2 * chp
-        read_bytes = cell_bytes * n_panels * n_strips * (T + 2 * hpm) * Wp
-        write_bytes = out_bytes_per_cell * n_panels * Hs * pc
-        computed_cells = n_panels * n_strips * (T + 2 * hpm) * Wp * iters_per_pass
-        redundancy = (
-            n_panels * n_strips * (T + 2 * hpm) * Wp / (max(H, 1) * max(W, 1))
-        )
-    elif window_mode == "linecache":
-        T = max(round_up(strip_rows, m), m)
-        n_strips = -(-H // T)
-        Hs = round_up(n_strips * T + hpm, m)
-        B = round_up(2 * hp, m)
-        band_win = B + 2 * hpm
-        read_bytes = cell_bytes * (n_strips * T + 2 * band_win) * Ws
-        write_bytes = out_bytes_per_cell * (n_strips * T + 2 * B) * Ws
-        computed_cells = (
-            (n_strips * T + 2 * band_win) * Ws * iters_per_pass
-        )
-        redundancy = (n_strips * T + 2 * band_win) / max(H, 1)
-    else:
-        T = max(strip_rows, hpm)
-        win_rows = T + 2 * hpm
-        # Clamped-mode carry geometry (StripPass): sublane-aligned, NOT
-        # padded to a strip multiple — the last strip's window/output clamp
-        # instead.
-        Hs = round_up(max(H, win_rows), m)
-        n_strips = -(-Hs // T)
-
-        read_bytes = cell_bytes * win_rows * Ws * n_strips
-        write_bytes = out_bytes_per_cell * Hs * Ws
-        computed_cells = n_strips * win_rows * Ws * iters_per_pass
-        redundancy = win_rows * Hs / (T * max(H, 1))
-
-    stats = {
-        "per_pass": {
-            "hbm_read_bytes": read_bytes,
-            "hbm_write_bytes": write_bytes,
-            "computed_cell_substeps": computed_cells * n_subiterations,
-            "redundancy": redundancy,
-        },
-        "n_passes": n_passes,
-        "run_hbm_bytes": n_passes * (read_bytes + write_bytes),
-        "run_useful_flops": H * W * n_iterations * flops_per_cell,
-    }
-    if measured_walltime:
-        spec = spec or TpuSpec.detect()
-        bw = stats["run_hbm_bytes"] / measured_walltime
-        stats["achieved_hbm_bw_gbps"] = bw / 1e9
-        stats["hbm_bw_fraction"] = bw / spec.hbm_bandwidth
-        stats["vpu_utilization"] = (
-            stats["run_useful_flops"] / measured_walltime / spec.vpu_flops
-        )
-        mem_time = stats["run_hbm_bytes"] / (
-            spec.hbm_efficiency * spec.hbm_bandwidth
-        )
-        stats["memory_time_fraction"] = mem_time / measured_walltime
-    return stats

@@ -3,9 +3,9 @@
 A *cell* is the value stored at one grid position. In this framework a cell is
 any JAX pytree whose leaves are scalars (or arrays, when a whole grid of cells
 is represented as a pytree of ``(H, W)`` arrays — the struct-of-arrays layout
-that is native to TPU).
+that vectorized hardware reads with contiguous loads).
 
-This replaces three reference subsystems at once (see /root/reference):
+This replaces three reference subsystems at once (see SURVEY.md):
 
 * the ``Cell`` template parameter with the ``std::semiregular`` requirement
   (``StencilStream/Concepts.hpp:43-44``),

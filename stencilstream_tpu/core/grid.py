@@ -4,7 +4,7 @@ Replaces the reference's per-backend ``Grid`` classes
 (``StencilStream/cpu/Grid.hpp:50``, ``monotile/Grid.hpp:56``,
 ``tiling/Grid.hpp:64``). Where the reference needs vectorized
 ``Padded<array<Cell, w>>`` storage and accessor shims for wide memory words,
-XLA's native (sublane, lane) tiling provides the same for free, so there is a
+XLA's own array layouts provide the same for free, so there is a
 single Grid for all backends: a pytree of ``(H, W)`` arrays, one per cell
 field, wrapped in a registered-pytree class so grids can flow through ``jit``.
 
@@ -107,12 +107,7 @@ class Grid:
         return jax.tree.map(np.asarray, self.arrays)
 
     def block_until_ready(self) -> "Grid":
-        jax.tree.map(lambda a: a.block_until_ready(), self.arrays)
-        # Some tunneled/remote PJRT platforms return from block_until_ready
-        # before execution completes; a one-element device-to-host fetch
-        # cannot. This keeps walltime accounting honest everywhere.
-        leaf = jax.tree.leaves(self.arrays)[0]
-        np.asarray(leaf[(0,) * leaf.ndim])
+        jax.block_until_ready(self.arrays)
         return self
 
     def __repr__(self) -> str:

@@ -1,13 +1,13 @@
 """The stencil view handed to a transition function.
 
 The reference materializes a ``(2r+1) x (2r+1)`` register array per cell and
-indexes it with signed offsets (``StencilStream/Stencil.hpp:47,91-146``). On
-TPU a per-cell register window would defeat vectorization, so the idiomatic
-equivalent is an *array-valued* view: ``stencil[dr, dc]`` returns the cell
+indexes it with signed offsets (``StencilStream/Stencil.hpp:47,91-146``). In
+an array program a per-cell register window would defeat vectorization, so
+the idiomatic equivalent is an *array-valued* view: ``stencil[dr, dc]`` returns the cell
 field(s) of the neighbor at signed offset ``(dr, dc)`` **for every cell of the
 block at once** — each leaf is an ``(H, W)`` array. Transition functions are
 written exactly like the reference's scalar ones (elementwise arithmetic,
-``jnp.where`` instead of ``if``), and the VPU applies them across all lanes.
+``jnp.where`` instead of ``if``), and XLA applies them across the whole block.
 
 Metadata carried by the view mirrors ``Stencil.hpp:164-177``:
 

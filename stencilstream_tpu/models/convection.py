@@ -41,6 +41,7 @@ __all__ = [
     "FoldedPseudoTransientKernel",
     "ThermalSolverKernel",
     "Experiment",
+    "CUDA_BENCHMARK",
     "init_grid",
     "init_folded_grid",
     "run",
@@ -81,13 +82,10 @@ class PseudoTransientKernel:
     """Momentum/pressure pseudo-transient iteration, k=3
     (``convection.cpp:76-183``).
 
-    The coordinate masks (``x < nx``-style) are loop-INVARIANT: Mosaic's
-    LICM hoists their iota/compare chains out of the fused iteration loop,
-    so they cost nothing per iteration (the round-4 variant-op model and the
-    same-session A/B vs :class:`FoldedPseudoTransientKernel` both show the
-    straight kernel is FASTER than precomputing the masks into stored
-    coefficient planes — the planes add per-pass HBM/VMEM traffic to save
-    compute that was already free).
+    The coordinate masks (``x < nx``-style) are recomputed from
+    ``stencil.id`` every sub-step; :class:`FoldedPseudoTransientKernel`
+    stores them as cell planes instead, trading that arithmetic for memory
+    traffic.
 
     ``with_err=False`` (static) drops the ErrV/ErrP bookkeeping: the error
     fields are only inspected after each ``nerr``-block of the convergence
@@ -98,7 +96,7 @@ class PseudoTransientKernel:
     stencil_radius = 1
     n_subiterations = 3
     # Every tap is guarded by coordinate masks below (the reference's
-    # ``if (x < nx && y < ny)`` pattern), so the fused backends may skip
+    # ``if (x < nx && y < ny)`` pattern), so the fused window passes may skip
     # halo-value substitution in neighbor shifts (backends.fused.shifted).
     handles_boundary = True
 
@@ -124,10 +122,9 @@ class PseudoTransientKernel:
         c = s[0, 0]
         x, y = s.row, s.col
         nx, ny = self.nx, self.ny
-        # Vector division on the VPU is a multi-pass operation; all grid
-        # divisions here are by SCALAR parameters, so divide once in scalar
-        # space and multiply the vectors (f32 rounding differs from the
-        # reference's x/dx by ulps; the oracle evaluates this same form).
+        # All grid divisions here are by SCALAR parameters, so divide once in
+        # scalar space and multiply the vectors (f32 rounding differs from
+        # the reference's x/dx by ulps; the oracle evaluates this same form).
         inv_dx, inv_dy = 1.0 / self.dx, 1.0 / self.dy
 
         if s.subiteration == 0:
@@ -271,11 +268,10 @@ class FoldedConvectionCell:
     compares (``if (x < nx && y < ny)``, ``convection.cpp:94-178``) that the
     straight port re-evaluates as iota-compare chains every sub-step. The
     coordinates never change, so the masks are functions of position alone:
-    precompute them once as cell fields. They are loop-INVARIANT (never
-    written by the kernel), so the Pallas backends elide their carry and HBM
-    write stream automatically; accumulate-style updates additionally fold
-    the mask into a coefficient plane (select -> FMA). Bit-exact vs the
-    straight port (tests/test_convection.py)."""
+    precompute them once as cell fields (never written by the kernel);
+    accumulate-style updates additionally fold the mask into a coefficient
+    plane (select -> FMA). Bit-exact vs the straight port
+    (tests/test_convection.py)."""
 
     T: jnp.ndarray
     Pt: jnp.ndarray
@@ -569,14 +565,14 @@ class Experiment:
         return 1.0 - self.dmp / self.ny
 
 
-#: Measured-peak backend configs on TPU v5e (the analog of the reference's
-#: tuned template parameters, convection.cpp:256-260). p=16 at a 256-row
-#: fused window: the app is partially HBM-bound below p~8 (p=2: 8.6,
-#: p=4: 14.1, p=8: 16.1, p=16: 16.4 GCell/s at the cuda-benchmark scale);
-#: non-power-of-two windows lose ~15% (p=12/window 200: 13.8).
-TUNED = {
-    "tiling": dict(strip_rows=160, iters_per_pass=16, unroll=16),
-}
+#: The reference's GPU benchmark experiment
+#: (``examples/convection/experiments/cuda-benchmark.json``): res=1024, a
+#: 3072x1024 grid (3071x1023 active cells) of 11-field cells.
+CUDA_BENCHMARK = dict(
+    lx=3.0, ly=1.0, px=1.5, py=0.5, eta0=1.0, DcT=1.0, deltaT=1.0,
+    Ra=1e7, Pra=1e3, res=1024, iterMax=50000, nt=100, nout=10,
+    nerr=100, epsilon=1e-4, dmp=2.0,
+)
 
 
 def make_pseudo_transient_kernel(
@@ -640,36 +636,18 @@ def run(
     """Full timestep loop with pseudo-transient convergence
     (``convection.cpp:399-478``). Returns ``(grid, stats)``.
 
-    ``folded=False`` (default) drives the STRAIGHT kernel: its coordinate
-    masks are loop-invariant and LICM-hoisted out of the fused iteration
-    loop, so they are free per iteration — measured FASTER than the folded
-    coordinate-plane variant (18.7 vs 17.3 GCell/s marginal, straight-lean
-    vs folded-lean, same session, T=160 p=16) because the folded cell's six
-    extra invariant planes cost per-pass HBM/VMEM traffic to save compute
-    that costs nothing. ``folded=True`` keeps the round-3 folded variant
-    (bit-exact; retained as the measured negative result).
+    ``folded=False`` (default) drives the STRAIGHT kernel, which recomputes
+    its coordinate masks; ``folded=True`` drives the folded coordinate-plane
+    variant (bit-exact with the straight one).
 
-    dtype policy: the reference cell is 11 *doubles*
-    (``convection.cpp:37-40``); TPU VPUs have no f64 datapath and Mosaic
-    does not lower f64 kernels, so ``float64`` runs route to the reference
-    (oracle) backend — bit-faithful to the reference's precision, at oracle
-    speed. ``float32`` (default) runs the accelerated backends; its
-    convergence trajectory matches f64 (tests/test_convection.py)."""
+    dtype: the reference cell is 11 *doubles* (``convection.cpp:37-40``);
+    ``float64`` runs at that precision on the same backends as ``float32``
+    (the default), whose convergence trajectory matches f64
+    (tests/test_convection.py)."""
     if jnp.dtype(dtype).itemsize == 8:
-        if backend != "reference":
-            import warnings
-
-            warnings.warn(
-                "float64 convection runs on the reference backend (TPU "
-                "Pallas has no f64 datapath); use float32 for accelerated "
-                "backends",
-                stacklevel=2,
-            )
-            backend = "reference"
         if not jax.config.read("jax_enable_x64"):
-            # Scope the x64 flag to this run: leaving it enabled globally
-            # makes later f32 Pallas traces carry i64 loop counters, which
-            # Mosaic cannot lower.
+            # Scope the x64 flag to this run: enabled globally it would turn
+            # every later default dtype in the process into a 64-bit one.
             old = jax.config.read("jax_enable_x64")
             jax.config.update("jax_enable_x64", True)
             try:
@@ -677,13 +655,11 @@ def run(
                            verbose=verbose, folded=folded)
             finally:
                 jax.config.update("jax_enable_x64", old)
-    tuned = TUNED.get(backend, {})
     folded = folded and backend != "reference"
     if folded:
         # Folded variant: coordinate planes precomputed (invariant cell
         # fields), Err bookkeeping only on each block's LAST iteration
         # (lean/full split — bit-exact, see FoldedPseudoTransientKernel).
-        # Measured SLOWER than the straight default (see run() docstring).
         halo = folded_zero_cell(jnp.dtype(dtype))
         pt_update = create_update(
             Params(
@@ -695,7 +671,6 @@ def run(
                 blocking=True,
             ),
             backend=backend,
-            **tuned,
         )
         lean_update = (
             create_update(
@@ -708,16 +683,14 @@ def run(
                     blocking=True,
                 ),
                 backend=backend,
-                **tuned,
             )
             if e.nerr > 1
             else None
         )
         grid = init_folded_grid(e, dtype)
     else:
-        # Straight production path: coordinate masks are loop-invariant and
-        # LICM-hoisted (see PseudoTransientKernel); same lean/full Err split
-        # as the folded path.
+        # Straight production path; same lean/full Err split as the folded
+        # path.
         halo = zero_cell(jnp.dtype(dtype))
         use_lean = e.nerr > 1 and backend != "reference"
         pt_update = create_update(
@@ -730,7 +703,6 @@ def run(
                 blocking=True,
             ),
             backend=backend,
-            **tuned,
         )
         lean_update = (
             create_update(
@@ -743,7 +715,6 @@ def run(
                     blocking=True,
                 ),
                 backend=backend,
-                **tuned,
             )
             if use_lean
             else None
@@ -759,7 +730,6 @@ def run(
             n_iterations=1,
         ),
         backend=backend,
-        **tuned,
     )
     stats = []
     start = time.perf_counter()
@@ -813,8 +783,8 @@ def run(
 
 
 def main(argv=None) -> int:
-    from ..utils.platform import honor_jax_platforms_env
-    honor_jax_platforms_env()
+    from ..utils.cache import enable_compile_cache
+    enable_compile_cache()
     parser = argparse.ArgumentParser(prog="convection")
     parser.add_argument("experiment", help="path to experiment JSON")
     parser.add_argument("output_dir")
@@ -823,8 +793,7 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--folded", action="store_true",
         help="run the folded coordinate-plane pseudo-transient kernel "
-        "variant (measured slower than the straight default — the masks "
-        "are LICM-hoisted anyway; kept as the documented alternative)",
+        "variant (bit-exact with the straight default)",
     )
     args = parser.parse_args(argv)
 

@@ -56,8 +56,8 @@ def run(grid: Grid, n_iterations: int, backend: str = "auto") -> tuple[Grid, obj
 
 
 def main(argv=None) -> int:
-    from ..utils.platform import honor_jax_platforms_env
-    honor_jax_platforms_env()
+    from ..utils.cache import enable_compile_cache
+    enable_compile_cache()
     parser = argparse.ArgumentParser(
         prog="conway", description="Conway's Game of Life over stdin/stdout"
     )

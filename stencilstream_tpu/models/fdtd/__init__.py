@@ -35,6 +35,7 @@ __all__ = [
     "LUTResolver",
     "RenderResolver",
     "RESOLVERS",
+    "MONO_BENCHMARK",
     "init_grid",
     "build_simulation",
     "run",
@@ -45,6 +46,17 @@ __all__ = [
 #: ops/cell constants used by the benchmark harness
 #: (examples/fdtd/scripts/benchmark.jl: 14 + 8 ops).
 FLOPS_PER_CELL = 22
+
+#: The reference's benchmark experiment
+#: (``examples/fdtd/experiments/mono_benchmark.json``): one 800 nm ring at
+#: dx = 1.5656 nm, which renders a 1024x1024 grid of 8-field cells.
+MONO_BENCHMARK = {
+    "tau": 100e-15,
+    "dx": 1.5655577299412914e-9,
+    "time": {"t_cutoff": 7.0, "t_detect": 14.0, "t_max": 15.0},
+    "source": {"frequency": 120e12, "phase": 3.0, "x": 0, "y": 0, "radius": 0},
+    "cavity_rings": [{"radius": 800e-9, "mu_r": 11.56, "eps_r": 1.0, "sigma": 0.0}],
+}
 
 
 def init_grid(parameters: Parameters, resolver) -> Grid:
@@ -76,20 +88,6 @@ def init_grid(parameters: Parameters, resolver) -> Grid:
     return Grid.from_numpy(arrays)
 
 
-#: Measured-peak backend configs on TPU v5e (the analog of the reference's
-#: tuned template parameters, examples/fdtd/src/fdtd.cpp:50-82): 146 GCell/s
-#: marginal at the 1024^2 mono-benchmark geometry (round-2 sweeps).
-TUNED = {
-    # strip 96 + the k=2 halo of 16 make the fused window exactly 128 rows
-    # (80.1 vs 76.3 GCell/s for strip 64, same-process A/B on v5e).
-    "tiling": dict(strip_rows=96, iters_per_pass=8, unroll=8),
-    # 4 of the 8 cell fields are invariant coefficient planes (elided from
-    # the carry), so a 1024^2 grid fits VMEM with the budget raised:
-    # 106 GCell/s vs 79 tiling (measured on v5e).
-    "monotile": dict(unroll=4, vmem_budget=200 * 1024 * 1024),
-}
-
-
 def build_simulation(
     parameters: Parameters,
     resolver=None,
@@ -100,8 +98,6 @@ def build_simulation(
 ):
     if resolver is None:
         resolver = CoefResolver(parameters)
-    if not backend_kwargs:
-        backend_kwargs = TUNED.get(backend, {})
     kernel = make_kernel(parameters, resolver)
     update = create_update(
         Params(
@@ -157,8 +153,8 @@ def run(
 
 
 def main(argv=None) -> int:
-    from ...utils.platform import honor_jax_platforms_env
-    honor_jax_platforms_env()
+    from ...utils.cache import enable_compile_cache
+    enable_compile_cache()
     parser = argparse.ArgumentParser(
         prog="fdtd", description="Nano-photonic disk cavity FDTD simulation"
     )

@@ -208,9 +208,9 @@ class LUTResolver:
 
         def lookup(table):
             # Select-sum instead of gather: the table is tiny (<= MAX_N_RINGS
-            # entries) and TPU vector units have no >=2-D gather; a chain of
-            # masked selects vectorizes perfectly (LUTResolver.hpp keeps the
-            # table in PE registers the same way).
+            # entries), so a chain of masked selects fuses into the update
+            # with no indexed loads (LUTResolver.hpp keeps the table in PE
+            # registers the same way).
             out = jnp.zeros(jnp.shape(idx), table.dtype)
             for j in range(table.shape[0]):
                 out = jnp.where(idx == j, table[j], out)

@@ -47,17 +47,6 @@ AMB_TEMP = 80.0
 #: ops/cell used for the GFlops print (hotspot.cpp:311, benchmark.jl:15).
 FLOPS_PER_CELL = 15
 
-#: Measured-peak backend configs on TPU v5e — the analog of the reference's
-#: per-backend tuned tables (hotspot.cpp:99-139). Applied by :func:`run`
-#: when the caller passes no explicit backend kwargs.
-TUNED = {
-    "monotile": dict(unroll=8),
-    # p=16 at a 256-row window: 125 -> 142 GCell/s at 8192^2 (half the HBM
-    # round trips per iteration at the same 1.14 redundancy; see jacobi).
-    "tiling": dict(strip_rows=224, iters_per_pass=16, unroll=16),
-}
-
-
 @cell_type
 class HotspotCell:
     temp: jnp.ndarray
@@ -73,7 +62,7 @@ class HotspotKernel:
     stencil_radius = 1
     n_subiterations = 1
     # Every out-of-grid tap is replaced below via stencil.id clamps, so the
-    # fused backends may skip halo-value substitution in the neighbor
+    # fused window passes may skip halo-value substitution in the neighbor
     # shifts (raw wrap-rolls; see backends.fused.shifted).
     handles_boundary = True
     Rx_1: float = 0.0
@@ -92,9 +81,9 @@ class HotspotKernel:
         left = jnp.where(s.col == 0, old, s[0, -1].temp)
         right = jnp.where(s.col == w - 1, old, s[0, 1].temp)
 
-        # Same update as hotspot.cpp:90-92, reassociated for the VPU: the
-        # constant products fold at trace time and the neighbor terms chain
-        # as FMAs, cutting per-sub-step arithmetic from ~10 ops to ~7
+        # Same update as hotspot.cpp:90-92, reassociated: the constant
+        # products fold at trace time and the neighbor terms chain as FMAs,
+        # cutting per-sub-step arithmetic from ~10 ops to ~7
         # (mathematically identical, f32 rounding differs by ulps):
         #   new = old + Cap*(power + (b+t-2*old)*Ry + (r+l-2*old)*Rx
         #                    + (AMB-old)*Rz)
@@ -145,8 +134,6 @@ def run(grid: Grid, n_iterations: int, backend: str = "auto", kernel=None,
         **backend_kwargs):
     if kernel is None:
         kernel = derive_coefficients(grid.height, grid.width)
-    if not backend_kwargs:
-        backend_kwargs = TUNED.get(backend, {})
     update = create_update(
         Params(
             transition_function=kernel,
@@ -161,8 +148,8 @@ def run(grid: Grid, n_iterations: int, backend: str = "auto", kernel=None,
 
 
 def main(argv=None) -> int:
-    from ..utils.platform import honor_jax_platforms_env
-    honor_jax_platforms_env()
+    from ..utils.cache import enable_compile_cache
+    enable_compile_cache()
     parser = argparse.ArgumentParser(
         prog="hotspot", description="Rodinia HotSpot transient thermal simulation"
     )

@@ -67,9 +67,8 @@ class Jacobi3Constant:
     n_coefficients = 0
 
     def __call__(self, s):
-        # Center tap first: the accumulation chain then issues behind the
-        # in-flight neighbor rotates (measured +14% on v5e for the 5-point
-        # variants; same math, f32 sum order differs from kernels.hpp by ulps).
+        # Center tap first (same math, f32 sum order differs from
+        # kernels.hpp by ulps).
         return (s[0, 0] + s[-1, 0] + s[1, 0]) * jnp.float32(0.33333334)
 
     def get_time_dependent_value(self, i):
@@ -147,11 +146,9 @@ class Jacobi5General:
     c4: float = 0.2
 
     def __call__(self, s):
-        # The accumulation chain STARTS with the center term: its operand is
-        # available immediately, so Mosaic issues the FMA chain behind the
-        # in-flight neighbor rotates. Center-last measured 143 GCell/s,
-        # center-first 163 on v5e 8192^2 (experiments/micro_order.py).
-        # Same math as kernels.hpp:236-272; f32 sum order differs by ulps.
+        # The accumulation chain starts with the center term, whose operand
+        # needs no shift. Same math as kernels.hpp:236-272; f32 sum order
+        # differs by ulps.
         return (
             self.c4 * s[0, 0]
             + self.c0 * s[-1, 0]
@@ -226,28 +223,8 @@ def init_grid(height: int, width: int) -> Grid:
     return Grid.from_numpy(block.astype(np.float32))
 
 
-#: Measured-peak backend configs on TPU v5e (the reference's per-variant
-#: tuned tables, kernels.hpp:236-253). strip 112 + halo 8 makes the fused
-#: window exactly 128 rows — a power-of-two window measured faster than the
-#: neighboring sizes; ``roll`` shifts beat slice+concat by ~4% once the
-#: accumulation chain is center-first (166.9 vs 159.6 GCell/s marginal at
-#: 8192^2, experiments/micro_order.py + marginal_backend.py).
-TUNED = {
-    # p=16 at a 256-row window (same 1.14 redundancy as 112/8's 128-row
-    # window, HALF the HBM round trips per iteration): 153.8 -> 169.7
-    # GCell/s at 8192^2 — the strip path's residual cost is imperfect
-    # DMA/compute overlap, so deeper temporal blocking pays directly.
-    "tiling": dict(strip_rows=224, iters_per_pass=16, unroll=16, shift_impl="roll"),
-    # unroll=8 in the VMEM-resident loop: 186 -> 223 GCell/s at 2048^2
-    # (the center-first chain composes with cross-step scheduling slack).
-    "monotile": dict(unroll=8),
-}
-
-
 def run(grid: Grid, kernel, n_iterations: int, backend: str = "auto",
         **backend_kwargs):
-    if not backend_kwargs:
-        backend_kwargs = TUNED.get(backend, {})
     update = create_update(
         Params(
             transition_function=kernel,
@@ -262,8 +239,8 @@ def run(grid: Grid, kernel, n_iterations: int, backend: str = "auto",
 
 
 def main(argv=None) -> int:
-    from ..utils.platform import honor_jax_platforms_env
-    honor_jax_platforms_env()
+    from ..utils.cache import enable_compile_cache
+    enable_compile_cache()
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "show-config":
         variant = argv[1] if len(argv) > 1 else "jacobi5_general"

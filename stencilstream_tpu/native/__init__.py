@@ -1,7 +1,7 @@
 """Native host-runtime library: build-on-first-use + ctypes bindings.
 
-The reference's runtime is C++ throughout; this package is the TPU build's
-native layer for the host data path (file-format parse/format kernels,
+The reference's runtime is C++ throughout; this package is this
+framework's native layer for the host data path (file-format parse/format kernels,
 :mod:`io_kernels.cpp <.>`). The shared library is compiled once with the
 system toolchain and cached next to the sources; every entry point has a
 pure-Python fallback in :mod:`stencilstream_tpu.utils.io`, so the framework

@@ -49,7 +49,7 @@ def read_char_grid(stream: IO[str], height: int, width: int) -> np.ndarray:
         # Read incrementally — exactly enough characters to cover
         # height*width non-whitespace cells — so the stream is left where the
         # Python fallback (and the reference's ``std::cin >> char``) leaves
-        # it: just past the last cell (ADVICE.md round 1). Each request asks
+        # it: just past the last cell. Each request asks
         # for at most the number of still-missing cells, so the loop can
         # overshoot only on whitespace *between* cells, never past the grid.
         total = height * width

@@ -129,3 +129,14 @@ def check_probe_grid(grid: Grid, expected_iteration: int) -> None:
     np.testing.assert_array_equal(out.c, cols)
     np.testing.assert_array_equal(out.i_iteration, expected_iteration)
     np.testing.assert_array_equal(out.i_subiteration, 0)
+
+
+def backend_kwargs(kw: dict) -> dict:
+    """Backend kwargs for a parametrize entry: a ``mesh_shape`` entry becomes
+    a device mesh, built at test time (never while a module is imported)."""
+    kw = dict(kw)
+    if "mesh_shape" in kw:
+        from stencilstream_tpu.parallel import make_mesh
+
+        kw["mesh"] = make_mesh(shape=kw.pop("mesh_shape"))
+    return kw

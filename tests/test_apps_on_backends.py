@@ -1,6 +1,6 @@
-"""All example apps through the Pallas/distributed backends vs the reference
-oracle — the app-level analog of the reference's backend test sweeps
-(``tests/monotile/StencilUpdate.cpp:38-79``)."""
+"""All example apps through auto and the multi-device backends vs the
+reference oracle — the app-level analog of the reference's backend test
+sweeps (``tests/monotile/StencilUpdate.cpp:38-79``)."""
 
 import numpy as np
 import pytest
@@ -11,10 +11,14 @@ from stencilstream_tpu.core import Grid, Params
 from stencilstream_tpu.backends import create_update
 from stencilstream_tpu.models import convection, fdtd
 
+from probe import backend_kwargs
+
 BACKENDS = [
-    ("monotile", {}),
-    ("tiling", dict(strip_rows=8, iters_per_pass=2)),
+    ("auto", {}),
     ("distributed", dict(iters_per_pass=2)),
+    # 2-D mesh, p=3: partial final pass on every app's iteration count.
+    ("distributed", dict(mesh_shape=(2, 4), iters_per_pass=3)),
+    # Partial lap: n < 8 devices * p.
     ("ring", dict(iters_per_pass=1, chunk_rows=8)),
 ]
 
@@ -52,7 +56,7 @@ def test_hotspot(backend, kw):
         )
 
     ref = create_update(make_params(), backend="reference")(grid).to_numpy()
-    out = create_update(make_params(), backend=backend, **kw)(grid).to_numpy()
+    out = create_update(make_params(), backend=backend, **backend_kwargs(kw))(grid).to_numpy()
     np.testing.assert_allclose(out.temp, ref.temp, rtol=1e-6, atol=1e-6)
 
 
@@ -66,7 +70,7 @@ def test_fdtd(backend, kw, material):
     grid = fdtd.init_grid(params, resolver)
 
     outs = {}
-    for b, k in (("reference", {}), (backend, kw)):
+    for b, k in (("reference", {}), (backend, backend_kwargs(kw))):
         update, _ = fdtd.build_simulation(
             params,
             resolver=resolver,
@@ -105,7 +109,7 @@ def test_convection_pseudo_transient(backend, kw):
         )
 
     ref = create_update(make_params(), backend="reference")(grid).to_numpy()
-    out = create_update(make_params(), backend=backend, **kw)(grid).to_numpy()
+    out = create_update(make_params(), backend=backend, **backend_kwargs(kw))(grid).to_numpy()
     for f in ("T", "Vx", "Vy", "Pt", "ErrV", "ErrP"):
         np.testing.assert_allclose(
             getattr(out, f), getattr(ref, f), rtol=1e-4, atol=1e-6, err_msg=f

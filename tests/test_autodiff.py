@@ -1,4 +1,4 @@
-"""Differentiability of stencil updates — a TPU-native capability beyond the
+"""Differentiability of stencil updates — a JAX-native capability beyond the
 reference: because updates are pure traced functions, gradients flow through
 whole simulations (adjoint/sensitivity analysis, parameter fitting)."""
 

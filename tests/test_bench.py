@@ -1,11 +1,14 @@
-"""Bench layer: run protocol, metrics persistence, analytic model."""
+"""Bench layer: run protocol, metrics persistence, device peaks, analytic
+model."""
 
 import json
 
-import numpy as np
+import pytest
 
 from stencilstream_tpu.bench import (
-    TpuSpec,
+    PEAKS,
+    DevicePeak,
+    device_peak,
     model_report,
     predicted_runtime,
     roofline_cells_per_s,
@@ -14,30 +17,37 @@ from stencilstream_tpu.bench import (
 )
 
 
+def _peak(hbm=1000e9, flops=1e18):
+    return DevicePeak(name="test", hbm_bytes_per_s=hbm, f32_flops=flops,
+                      source="unit test")
+
+
 def test_roofline_matches_reference_formula():
-    spec = TpuSpec(hbm_bandwidth=1000e9, hbm_efficiency=0.8)
     # cells/s = 0.8 * BW / (2 * cell_size)  (benchmark-common.jl:148-151)
-    assert roofline_cells_per_s(spec, 8) == 0.8 * 1000e9 / 16
+    assert roofline_cells_per_s(_peak(), 8) == 0.8 * 1000e9 / 16
 
 
 def test_temporal_blocking_speedup():
-    spec = TpuSpec(hbm_bandwidth=1000e9, hbm_efficiency=1.0, vpu_flops=1e18)
-    t1 = predicted_runtime(spec, 10**6, 64, 8, iters_per_pass=1)
-    t16 = predicted_runtime(spec, 10**6, 64, 8, iters_per_pass=16)
+    peak = _peak()
+    t1 = predicted_runtime(peak, 10**6, 64, 8, iters_per_pass=1)
+    t16 = predicted_runtime(peak, 10**6, 64, 8, iters_per_pass=16)
     assert abs(t1 / t16 - 16) < 1e-6  # memory-bound: p-fold fewer passes
 
 
 def test_compute_bound_crossover():
-    spec = TpuSpec(hbm_bandwidth=1e15, hbm_efficiency=1.0, vpu_flops=1e12)
-    t = predicted_runtime(spec, 10**6, 10, 8, iters_per_pass=10, flops_per_cell=100)
+    peak = _peak(hbm=1e15, flops=1e12)
+    t = predicted_runtime(peak, 10**6, 10, 8, iters_per_pass=10,
+                          flops_per_cell=100, efficiency=1.0)
     assert abs(t - 10**6 * 10 * 100 / 1e12) < 1e-9
 
 
 def test_model_report_fields():
-    rep = model_report(TpuSpec(), 10**6, 100, 8, measured_walltime=0.01)
+    rep = model_report(device_peak("NVIDIA H100 80GB HBM3"), 10**6, 100, 8,
+                       measured_walltime=0.01)
     assert rep["measured_cells_per_s"] == 10**6 * 100 / 0.01
     assert 0 < rep["occupancy_vs_roofline"]
-    assert set(rep) >= {"model_accuracy", "single_pass_roofline_cells_per_s"}
+    assert set(rep) >= {"model_accuracy", "single_pass_roofline_cells_per_s",
+                        "peak_source"}
 
 
 def test_run_benchmark_and_write_metrics(tmp_path):
@@ -53,373 +63,38 @@ def test_run_benchmark_and_write_metrics(tmp_path):
     )
     assert len(calls) == 3  # warmup + 2 samples
     assert result.cells_per_s > 0
+    assert result.model is None  # no peaks given: no roofline report
     path = write_metrics(result, str(tmp_path))
     with open(path) as f:
         data = json.load(f)
     assert data["variant"] == "unit.test"
     assert data["grid_shape"] == [4, 4]
     assert len(data["samples_s"]) == 2
+    assert data["device"]["platform"] == "cpu"
+    assert data["device"]["count"] >= 1
 
 
-def test_detect_never_raises():
-    assert TpuSpec.detect().hbm_bandwidth > 0
+def test_h100_peaks_carry_their_source():
+    """The H100 SXM figures of NVIDIA's data sheet, keyed by the device
+    kind JAX reports for that card."""
+    peak = device_peak("NVIDIA H100 80GB HBM3")
+    assert peak.hbm_bytes_per_s == 3.35e12
+    assert peak.f32_flops == 67e12
+    assert "data sheet" in peak.source
+    assert all(p.source for p in PEAKS.values())
 
 
-def test_strip_kernel_stats_extraction():
-    """The ncu-analog metric extraction (bench.profile.strip_kernel_stats):
-    per-pass DMA bytes derived exactly from the strip-kernel geometry."""
-    from stencilstream_tpu.bench.profile import strip_kernel_stats
-
-    s = strip_kernel_stats(
-        (8192, 8192), [4, 4], [False, True],
-        radius=1, n_subiterations=1, iters_per_pass=8,
-        strip_rows=64, n_iterations=4096,
-        measured_walltime=2.0, flops_per_cell=15,
-    )
-    # 128 strips x 80-row windows x 8192 cols x 8 B/cell read per pass.
-    assert s["per_pass"]["hbm_read_bytes"] == 128 * 80 * 8192 * 8
-    # Only the variant field (temp) is written: 8192^2 x 4 B.
-    assert s["per_pass"]["hbm_write_bytes"] == 8192 * 8192 * 4
-    assert s["n_passes"] == 512
-    assert s["per_pass"]["redundancy"] == 1.25
-    assert 0 < s["vpu_utilization"] < 1
-    assert 0 < s["hbm_bw_fraction"] < 1
+@pytest.mark.parametrize(
+    "kind", ["NVIDIA H200", "cpu", "NVIDIA A100-SXM4-80GB", "NVIDIA H100 PCIe", ""]
+)
+def test_peak_table_rejects_unknown_device(kind):
+    """A device that is not in the table is an error, never a default."""
+    with pytest.raises(KeyError, match="no published peak"):
+        device_peak(kind)
 
 
-def test_pick_config_snaps_to_pow2_windows():
-    """Auto strip selection lands the fused window (strip + 2*halo) on a
-    power of two when the snap keeps >= half the core rows — the measured
-    Mosaic scheduling sweet spot (docs/DESIGN.md round-2 notes)."""
-    import jax.numpy as jnp
-
-    from stencilstream_tpu.backends.tiling import pick_config
-
-    # jacobi-like: r=1, k=1, p=8 -> halo 8; the auto strip snaps so the
-    # window is a power of two
-    a = jnp.zeros((8192, 8192), jnp.float32)
-    strip, p = pick_config(a, 1, 1, 8192, None, 8)
-    assert p == 8
-    assert (strip + 2 * 8) in (64, 128, 256), strip
-
-    # fdtd-like: k=2, p=8 -> halo 16; window must land on a power of two
-    cell = tuple(jnp.zeros((1024, 1024), jnp.float32) for _ in range(8))
-    strip, p = pick_config(cell, 1, 2, 131072, None, 8)
-    assert (strip + 2 * 16) in (64, 128, 256), strip
-
-    # fully-auto: p is RE-derived after the snap so the halo overhead stays
-    # near the documented ~33% target (never 50%)
-    strip, p = pick_config(a, 1, 1, 8192, None, None)
-    hpm = max(8, -(-p // 8) * 8)
-    assert 2 * hpm <= strip, (strip, p)
-    assert (strip + 2 * hpm) in (64, 128, 256), (strip, p)
-
-    # explicit strip_rows is respected: only rounded to the sublane
-    # multiple, NEVER snapped (A/B sweeps must measure what they asked for)
-    strip, _ = pick_config(a, 1, 1, 8192, 100, 8)
-    assert strip == 104
-    strip, _ = pick_config(a, 1, 1, 8192, 64, 8)
-    assert strip == 64
-    strip, _ = pick_config(a, 1, 1, 8192, 128, 8)
-    assert strip == 128
-
-
-def test_pick_config_property_sweep():
-    """Property test over (H, r, k, n, requested strip/p) grids (VERDICT r2
-    weak #5): the double-snap logic must always return a sublane-aligned
-    strip within the grid, a positive p capped by n, and — when both knobs
-    are auto — keep the compound halo at or below half the core rows
-    (except in the irreducible p=1 case)."""
-    import jax.numpy as jnp
-
-    from stencilstream_tpu.backends.pallas_util import round_up
-    from stencilstream_tpu.backends.tiling import pick_config
-
-    m = 8
-    for H in (8, 24, 100, 129, 1024, 8192):
-        a = jnp.zeros((H, 128), jnp.float32)
-        for r in (1, 2):
-            for k in (1, 2, 3):
-                for n in (1, 5, 8, 1000):
-                    for strip_req in (None, 8, 100):
-                        for p_req in (None, 1, 8):
-                            strip, p = pick_config(a, r, k, n, strip_req, p_req)
-                            ctx = (H, r, k, n, strip_req, p_req, strip, p)
-                            assert strip % m == 0 and strip >= m, ctx
-                            assert strip <= round_up(H, m), ctx
-                            assert 1 <= p <= max(n, 1), ctx
-                            if p_req is not None:
-                                assert p == min(p_req, n), ctx
-                            if strip_req is not None:
-                                # explicit strips are only rounded, never
-                                # snapped
-                                assert strip == min(
-                                    round_up(strip_req, m), round_up(H, m)
-                                ), ctx
-                            if strip_req is None and p_req is None and p > 1:
-                                # Halo stays <= half the core rows — unless
-                                # the m-rounding already pins it at the p=1
-                                # floor (tiny grids), where extra fusion is
-                                # free.
-                                hpm = round_up(r * k * p, m)
-                                assert (
-                                    2 * hpm <= strip
-                                    or hpm == round_up(r * k, m)
-                                ), ctx
-
-
-def test_count_vector_ops_variant_only_excludes_hoisted_chains():
-    """Loop-invariant chains (shifts/arithmetic fed purely by invariant
-    fields, e.g. hotspot's power plane) are hoisted out of the iteration
-    loop by Mosaic — the per-iteration op count must exclude them, else the
-    compute-ceiling model under-predicts every invariant-heavy row
-    (round-3's dead-gauge model_accuracy)."""
-    import jax.numpy as jnp
-    from stencilstream_tpu.bench.model import count_vector_ops
-    from stencilstream_tpu.models.hotspot import HotspotCell, derive_coefficients
-    from stencilstream_tpu.models import jacobi
-
-    hs = derive_coefficients(256, 256)
-    cell0 = HotspotCell(temp=jnp.zeros((), jnp.float32),
-                        power=jnp.zeros((), jnp.float32))
-    halo = HotspotCell(temp=jnp.float32(0), power=jnp.float32(0))
-    kw = dict(radius=1, n_subiterations=1)
-    full = count_vector_ops(hs, cell0, halo, variant_only=False, **kw)
-    variant = count_vector_ops(hs, cell0, halo, **kw)
-    assert variant < full  # the invariant power plane's chain is excluded
-    assert variant >= 10   # but the temp-dependent physics is all there
-
-    jt = jacobi.make_kernel("jacobi5_general", [0.2] * 5)
-    jv = count_vector_ops(jt, jnp.zeros((), jnp.float32), jnp.float32(0), **kw)
-    jf = count_vector_ops(jt, jnp.zeros((), jnp.float32), jnp.float32(0),
-                          variant_only=False, **kw)
-    assert jv == jf  # single variant field: nothing to hoist
-
-
-def test_tables_renderer_flags_out_of_range_model_accuracy():
-    """The README table renderer (bench.tables) is the anti-drift tool:
-    rows come from BENCH_DETAILS.json verbatim and a model_accuracy outside
-    [0.5, 1.3] gets a visible marker (VERDICT r2 weak #2/#4)."""
-    from stencilstream_tpu.bench.tables import render_rows
-
-    details = {
-        "results": [
-            {
-                "case": "jacobi_tiling", "app": "jacobi5_general",
-                "backend": "tiling", "grid": [8192, 8192],
-                "n_iterations": 32768, "gcells_per_s": 176.8,
-                "gflops": 1591.0, "vs_baseline": 1.004,
-                "model": {"model_accuracy": 0.97},
-            },
-            {
-                "case": "hotspot_monotile", "app": "hotspot",
-                "backend": "monotile", "grid": [1024, 1024],
-                "n_iterations": 131072, "gcells_per_s": 169.2,
-                "gflops": 2538.0, "vs_baseline": 1.38,
-                "model": {"model_accuracy": 4.13},
-            },
-        ],
-        "convection_tiling_error": "ValueError: boom",
-    }
-    md = render_rows(details)
-    assert "176.08 GCell/s" in md          # jacobi baseline resolved
-    assert "**1.00×**" in md               # ratio formatting
-    assert md.count("OUT OF RANGE") == 1   # only the 4.13 row flagged
-    assert "FAILED: ValueError: boom" in md
-
-
-def test_ici_exchange_report_counts_payload_not_frame():
-    """VERDICT r3 missing #5: the 2D-mesh exchange must move only the hp
-    needed columns over ICI (the stored lane-aligned frame is filled
-    locally); the model reports the moved payload and keeps the would-be
-    frame bytes visible so a regression shows up as inflation."""
-    from stencilstream_tpu.bench.model import TpuSpec, ici_exchange_report
-
-    r2d = ici_exchange_report(
-        TpuSpec(), (2, 4), (8192, 8192), 4, radius=1, iters_per_pass=16)
-    # hp = 16, hpm = 16; column slices span the row-extended block.
-    assert r2d["col_inflation"] == 1.0
-    assert r2d["col_bytes"] == 2 * 16 * (4096 + 32) * 4
-    assert r2d["col_stored_bytes"] == 2 * 128 * (4096 + 32) * 4  # 8x the payload
-    assert r2d["row_bytes"] == 2 * 16 * 2048 * 4
-    assert 0 < r2d["exchange_fraction"] < 1   # was ~0.97 pre-fix at 8x
-
-    r1d = ici_exchange_report(
-        TpuSpec(), (8, 1), (8192, 8192), 4, radius=1, iters_per_pass=16)
-    assert r1d["col_bytes"] == 0 and r1d["col_inflation"] == 1.0
-    # Post-fix, the (2,4) mesh moves FEWER bytes per device than the 1D row
-    # mesh (whose full-width row halos are 4x wider) — pre-fix the stored
-    # frame made 2D ~33% more expensive than 1D.
-    assert r2d["exchange_fraction"] < r1d["exchange_fraction"]
-    pre_fix = (r2d["row_bytes"] + r2d["col_stored_bytes"]) / (
-        r2d["row_bytes"] + r2d["col_bytes"])
-    assert pre_fix > 4   # the fix cut total 2D exchange bytes > 4x here
-
-    # bf16 cells store a 16-row halo (ADVICE r3 #4: the sublane multiple is
-    # dtype-dependent, not hardcoded f32).
-    rbf = ici_exchange_report(
-        TpuSpec(), (2, 4), (8192, 8192), 2, radius=1, iters_per_pass=12,
-        sublane_multiple=16)
-    assert rbf["row_bytes"] == 2 * 16 * 2048 * 2   # hpm = round_up(12, 16)
-
-
-def test_col_inflation_gauge_is_live():
-    """VERDICT r4 weak #6 / ADVICE r4 #2: ``col_inflation`` must be able to
-    move. The width the exchange actually moves is extracted from the
-    ppermute operands of a REAL trace (``traced_col_payload_width``); the
-    report derives inflation from it, so a regression that reintroduces
-    frame-width transfers (moved = chm = 128 instead of hp) reads as 8x
-    inflation and ~97% exchange fraction — the measured pre-fix numbers."""
-    from stencilstream_tpu.bench.model import (
-        TpuSpec,
-        ici_exchange_report,
-        traced_col_payload_width,
-    )
-
-    # col_rows = 496 + 2*8 = 512, 512*6 elements pack to exactly 3 tiles —
-    # no ceil-div slack, the traced width is exact.
-    traced = traced_col_payload_width((2, 4), (496, 256), radius=1,
-                                      iters_per_pass=6)
-    assert traced == 6  # == hp: the packed exchange moves only the payload
-
-    ok = ici_exchange_report(TpuSpec(), (2, 4), (8192, 8192), 4, radius=1,
-                             iters_per_pass=16, moved_col_width=16)
-    assert ok["col_inflation"] == 1.0
-    bad = ici_exchange_report(TpuSpec(), (2, 4), (8192, 8192), 4, radius=1,
-                              iters_per_pass=16, moved_col_width=128)
-    assert bad["col_inflation"] == 8.0       # the gauge moved
-    assert bad["exchange_fraction"] > 0.9    # and shows the pre-fix cost
-    assert bad["col_bytes"] == 8 * ok["col_bytes"]
-
-    # 1D row mesh: no column exchange to trace.
-    assert traced_col_payload_width((8, 1), (512, 256), radius=1,
-                                    iters_per_pass=8) == 0
-
-
-def test_bench_budget_calibration_and_rotation(tmp_path, monkeypatch):
-    """VERDICT r4 #1: the driver bench must budget with MEASURED per-case
-    walltimes from the previous artifact (the round-4 hand guesses were off
-    by up to 4.5x -> two consecutive rc=124s) and rotate non-headline cases
-    stalest-evidence-first so budget-limited driver rounds accumulate
-    coverage instead of re-proving the same prefix."""
-    import bench
-
-    art = tmp_path / "BENCH_DETAILS.json"
-    art.write_text(json.dumps({
-        "run_seq": 3,
-        "cold_start": True,
-        "case_walltimes": {"a": 100.0, "b": 40.0},
-        "case_walltimes_warm": {"b": 12.0},
-        "case_history": {"a": 2, "b": 1},
-        "results": [
-            {"case": "a", "case_walltime_s": 120.0},
-            {"case": "c", "case_walltime_s": 55.0},
-        ],
-    }))
-    monkeypatch.setattr(bench, "_DETAILS_PATH", str(art))
-    cold, warm, history, run_seq = bench.load_history()
-    assert run_seq == 4
-    # Bootstrap rows route by the artifact's cold_start flag and never
-    # clobber an already-merged table entry ("a" keeps its merged 100.0).
-    assert cold == {"a": 100.0, "b": 40.0, "c": 55.0}
-    assert warm == {"b": 12.0}
-    # Cases the artifact's own run completed are stamped as run 3.
-    assert history == {"a": 3, "b": 1, "c": 3}
-
-    # A WARM previous run's results land in the warm table instead —
-    # a warm walltime must never masquerade as a cold-cost estimate.
-    art.write_text(json.dumps({
-        "run_seq": 3,
-        "cold_start": False,
-        "case_walltimes": {"a": 100.0},
-        "results": [{"case": "c", "case_walltime_s": 5.0}],
-    }))
-    cold, warm, history, run_seq = bench.load_history()
-    assert cold == {"a": 100.0} and warm == {"c": 5.0}
-
-    cases = [("headline", None, {}, 1), ("a", None, {}, 2),
-             ("b", None, {}, 3), ("c", None, {}, 4), ("never", None, {}, 5)]
-    history = {"a": 3, "b": 1, "c": 3}
-    order = [label for label, *_ in bench.rotate_cases(cases, history)]
-    # Headline pinned first; never-measured beats any stamp; then stalest.
-    assert order == ["headline", "never", "b", "a", "c"]
-
-    # Pinned flagship cases run right after the headline in EVERY run,
-    # exempt from staleness rotation (the driver artifact must carry the
-    # round's flagship claim, not eventually-rotated coverage).
-    monkeypatch.setattr(bench, "PINNED_CASES", ("c",))
-    order = [label for label, *_ in bench.rotate_cases(cases, history)]
-    assert order == ["headline", "c", "never", "b", "a"]
-    monkeypatch.setattr(bench, "PINNED_CASES", ("jacobi_tiling_bf16",))
-
-    # Missing/corrupt artifact -> clean slate, run 1, authored order kept.
-    monkeypatch.setattr(bench, "_DETAILS_PATH", str(tmp_path / "absent.json"))
-    cold, warm, history, run_seq = bench.load_history()
-    assert (cold, warm, history, run_seq) == ({}, {}, {}, 1)
-    assert [l for l, *_ in bench.rotate_cases(cases, history)] == [
-        "headline", "a", "b", "c", "never"]
-
-    # Cache-aware estimates: warm runs budget with warm walltimes where
-    # known; cold runs always use cold walltimes; fallback otherwise.
-    cold_wt, warm_wt = {"x": 400.0, "y": 200.0}, {"x": 30.0}
-    assert bench.pick_estimate("x", cold_wt, warm_wt, False, 99) == 30.0 * 1.3
-    assert bench.pick_estimate("x", cold_wt, warm_wt, True, 99) == 400.0 * 1.15
-    assert bench.pick_estimate("y", cold_wt, warm_wt, False, 99) == 200.0 * 1.15
-    assert bench.pick_estimate("z", cold_wt, warm_wt, False, 99) == 99
-
-
-def test_exchange_halo_payload_packs_and_fills():
-    """The collective must carry ONLY the packed hp-column payload — the
-    lane-aligned frame positions are filled locally with zeros (they are
-    >= hp from the retained core, so they can never influence it)."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-    from jax.sharding import PartitionSpec as P
-    from stencilstream_tpu.parallel import exchange_halo, make_mesh
-
-    mesh = make_mesh(shape=(2, 4))
-    ny, nx = 2, 4
-    h, w = 16, 256
-    hp, chm, hpm = 6, 128, 8
-
-    def f(x):
-        return exchange_halo({"a": x}, (hpm, chm), ("y", "x"), (ny, nx),
-                             payload=(hpm, hp))["a"]
-
-    spmd = jax.shard_map(
-        f, mesh=mesh, in_specs=P("y", "x"), out_specs=P("y", "x"),
-        check_vma=False,
-    )
-    full = jnp.arange(ny * h * nx * w, dtype=jnp.float32).reshape(
-        ny * h, nx * w)
-    out = np.asarray(jax.jit(spmd)(full))
-    # Per-device output block is (h + 2*hpm, w + 2*chm); check device (0,1):
-    # its left halo's NEAR hp columns = device (0,0)'s rightmost hp columns.
-    blk = out[: h + 2 * hpm, (w + 2 * chm): 2 * (w + 2 * chm)]
-    near = blk[hpm: hpm + h, chm - hp: chm]
-    np.testing.assert_array_equal(near, np.asarray(full[:h, w - hp: w]))
-    # The FAR frame columns are locally-filled zeros, not ICI traffic.
-    np.testing.assert_array_equal(blk[:, : chm - hp], 0.0)
-    # Core is untouched.
-    np.testing.assert_array_equal(
-        blk[hpm: hpm + h, chm: chm + w], np.asarray(full[:h, w: 2 * w]))
-
-    # Payload-byte regression: every ppermute in the traced program must
-    # carry at most the packed payload, never the chm-wide stored frame.
-    jaxpr = jax.make_jaxpr(spmd)(full)
-    sizes = []
-
-    def collect(jx):
-        for eqn in jx.eqns:
-            sub = eqn.params.get("jaxpr") or eqn.params.get("call_jaxpr")
-            if sub is not None:
-                collect(sub.jaxpr if hasattr(sub, "jaxpr") else sub)
-            if eqn.primitive.name == "ppermute":
-                sizes.extend(v.aval.size for v in eqn.invars)
-
-    collect(jaxpr.jaxpr)
-    assert sizes, "expected ppermute collectives in the traced exchange"
-    row_payload = hpm * w                     # rows ride at stored width
-    col_payload_packed = -(-((h + 2 * hpm) * hp) // 1024) * 1024
-    frame = (h + 2 * hpm) * chm
-    assert max(sizes) <= max(row_payload, col_payload_packed) < frame
+def test_peak_of_this_cpu_device_is_unknown():
+    """device_peak() with no argument looks up the first visible device —
+    here the CPU, which has no entry."""
+    with pytest.raises(KeyError):
+        device_peak()

@@ -1,8 +1,11 @@
 """Benchmark CLI smoke tests (CPU-sized)."""
 
 import json
+import os
 import subprocess
 import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_max_perf_writes_metrics(tmp_path):
@@ -15,7 +18,7 @@ def test_max_perf_writes_metrics(tmp_path):
         ],
         capture_output=True,
         text=True,
-        cwd="/root/repo",
+        cwd=REPO,
         timeout=600,
     )
     assert proc.returncode == 0, proc.stderr
@@ -25,4 +28,7 @@ def test_max_perf_writes_metrics(tmp_path):
     data = json.loads(metrics[0].read_text())
     assert data["grid_shape"] == [64, 64]
     assert data["cells_per_s"] > 0
-    assert "model_accuracy" in data["model"]
+    # A CPU run names its device and carries no roofline report: the
+    # peaks exist only for measured devices.
+    assert data["device"]["platform"] == "cpu"
+    assert data["model"] is None

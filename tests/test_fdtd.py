@@ -43,8 +43,11 @@ def tiny_config(t_max=0.02, t_snap=None, radius=86e-9, source_radius=0.0):
 
 
 class TestParameters:
-    def test_default_json_derived_quantities(self):
-        p = fdtd.Parameters.load("/root/reference/examples/fdtd/experiments/default.json")
+    def test_default_json_derived_quantities(self, tmp_path):
+        # examples/fdtd/experiments/default.json of the reference.
+        path = tmp_path / "default.json"
+        path.write_text(json.dumps(tiny_config(radius=800e-9, t_max=15.0, t_snap=0.1)))
+        p = fdtd.Parameters.load(str(path))
         # grid width = ceil(2*800nm/10nm + 2) = 162 (Parameters.hpp:243-251)
         assert p.grid_range() == (162, 162)
         assert math.isclose(p.dt(), (10e-9 / (C0 * SQRT_2)) * 0.99, rel_tol=1e-5)

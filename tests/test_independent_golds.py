@@ -1,4 +1,4 @@
-"""Independent numerical golds for FDTD and Convection (VERDICT round 1 #6).
+"""Independent numerical golds for FDTD and Convection.
 
 conway/jacobi/hotspot already validate against independent numpy oracles
 (tests/test_models_basic.py). These two apps were only checked against frozen
@@ -350,8 +350,8 @@ class TestConvectionIndependentGold:
 
     def test_pseudo_transient_f64_matches_julia_transcription(self):
         """The reference cell is 11 DOUBLES (convection.cpp:37-40); the f64
-        path (routed to the oracle backend — Mosaic has no f64) must match
-        the independent gold at double-precision tolerances."""
+        path must match the independent gold at double-precision
+        tolerances."""
         import jax
 
         old = jax.config.read("jax_enable_x64")

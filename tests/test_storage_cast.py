@@ -1,6 +1,6 @@
 """bf16-storage wrapper (``backends/storage_cast.py``): taps upcast to f32
-for compute, results stored bf16 — the HBM-traffic-halving option for the
-bandwidth-bound regime (VERDICT r3 #4a)."""
+for compute, results stored bf16 — the traffic-halving option for the
+bandwidth-bound regime."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -9,6 +9,8 @@ import pytest
 from stencilstream_tpu.core import Grid, Params
 from stencilstream_tpu.backends import create_update
 from stencilstream_tpu.backends.storage_cast import CastStorageKernel, cast_storage
+
+from probe import backend_kwargs
 
 
 def _jacobi():
@@ -21,8 +23,8 @@ def _jacobi():
 
 @pytest.mark.parametrize("backend,kw", [
     ("reference", {}),
-    ("tiling", dict(strip_rows=32, iters_per_pass=2)),
-    ("monotile", dict(unroll=2)),
+    ("distributed", dict(mesh_shape=(2, 4), iters_per_pass=3)),
+    ("ring", dict(iters_per_pass=1, chunk_rows=16)),
 ])
 def test_bf16_storage_tracks_f32(backend, kw):
     """bf16 storage must produce bf16 output arrays that track the f32 run
@@ -33,14 +35,13 @@ def test_bf16_storage_tracks_f32(backend, kw):
     f32 = create_update(
         Params(transition_function=kernel, halo_value=halo, n_iterations=n,
                blocking=True),
-        backend=backend, **kw,
+        backend=backend, **backend_kwargs(kw),
     )(grid)
     up = create_update(
         Params(transition_function=CastStorageKernel(kernel), halo_value=halo,
                n_iterations=n, blocking=True),
-        backend=backend, **kw,
+        backend=backend, **backend_kwargs(kw),
     )
-    up.fallback_to_reference = False
     out = up(cast_storage(grid))
     arr = out.arrays
     assert arr.dtype == jnp.bfloat16
@@ -64,8 +65,9 @@ def test_contract_passthrough():
 
 def test_hotspot_bf16_storage_boundary_kernel():
     """hotspot clamps boundaries via stencil.id inside the kernel
-    (handles_boundary=True elides halo masks): the cast wrapper must keep
-    that path intact — compare against the f32 oracle."""
+    (handles_boundary=True skips halo masks in the fused window passes):
+    the cast wrapper must keep that path intact — compare against the f32
+    oracle."""
     from stencilstream_tpu.models.hotspot import HotspotCell, derive_coefficients
 
     rng = np.random.default_rng(3)
@@ -83,9 +85,8 @@ def test_hotspot_bf16_storage_boundary_kernel():
     up = create_update(
         Params(transition_function=CastStorageKernel(kernel), halo_value=halo,
                n_iterations=n, blocking=True),
-        backend="tiling", strip_rows=32, iters_per_pass=2,
+        backend="ring", iters_per_pass=2, chunk_rows=16,
     )
-    up.fallback_to_reference = False
     out = up(cast_storage(grid))
     assert out.arrays.temp.dtype == jnp.bfloat16
     np.testing.assert_allclose(
@@ -102,91 +103,9 @@ def test_cast_storage_leaves_non_f32_alone():
     assert out["i"].dtype == jnp.int32
 
 
-def test_roll_lowering_skips_narrow_dtypes():
-    """Mosaic's rotate only has a 32-bit datapath ("Rotate with non-32-bit
-    data", measured round 4): under SHIFT_IMPL='roll', bf16/int8 arrays must
-    take the concat lowering (no `roll` primitive in the jaxpr) while f32
-    keeps the roll; semantics must agree between the two lowerings."""
-    import jax
-
-    import stencilstream_tpu.backends.fused as fused
-
-    rng = np.random.default_rng(7)
-    base = rng.random((8, 128)).astype(np.float32)
-    old = fused.SHIFT_IMPL
-    try:
-        fused.SHIFT_IMPL = "roll"
-        for dt, wants_roll in ((jnp.float32, True), (jnp.bfloat16, False),
-                               (jnp.int8, False)):
-            a = jnp.asarray(base * 100, dt)
-            fn = lambda x: fused.shifted(x, 1, 0, jnp.asarray(0, dt))
-            prims = {e.primitive.name for e in jax.make_jaxpr(fn)(a).eqns}
-            assert ("roll" in prims) == wants_roll, (dt, prims)
-            if not wants_roll:
-                # pltpu.roll has no eval rule outside a kernel, so only the
-                # concat-lowered dtypes can be compared eagerly.
-                lowered = fn(a)
-                fused.SHIFT_IMPL = "concat"
-                np.testing.assert_array_equal(
-                    np.asarray(lowered, np.float32),
-                    np.asarray(fn(a), np.float32))
-                fused.SHIFT_IMPL = "roll"
-    finally:
-        fused.SHIFT_IMPL = old
-
-
-def test_bf16_roll_config_matches_concat():
-    """The tuned jacobi config pins shift_impl='roll'; with bf16 storage the
-    taps transparently fall back to the concat lowering and the result is
-    identical to an explicit concat run."""
-    grid, kernel, halo = _jacobi()
-    outs = {}
-    for impl in ("roll", "concat"):
-        up = create_update(
-            Params(transition_function=CastStorageKernel(kernel),
-                   halo_value=halo, n_iterations=4, blocking=True),
-            backend="tiling", strip_rows=32, iters_per_pass=2,
-            shift_impl=impl,
-        )
-        up.fallback_to_reference = False
-        outs[impl] = np.asarray(up(cast_storage(grid)).arrays, np.float32)
-    np.testing.assert_array_equal(outs["roll"], outs["concat"])
-
-
-def test_linecache_bf16_falls_back_loudly(monkeypatch):
-    """window_mode='linecache' requires roll shifts, which Mosaic cannot
-    lower for non-32-bit cells — bf16 storage must warn and take the
-    clamped path on hardware (interpret=False)."""
-    from stencilstream_tpu.models import jacobi
-    from stencilstream_tpu.backends import tiling
-
-    kernel = jacobi.make_kernel("jacobi5_general", [0.15, 0.2, 0.25, 0.1, 0.3])
-    grid = jacobi.init_grid(512, 256)  # tall + lane-aligned: no reroutes
-    halo = jnp.float32(0.0)
-    captured = {}
-
-    def fake_run(arrays, *a, **kw):
-        captured.update(kw)
-        return arrays
-
-    monkeypatch.setattr(tiling, "_run_tiling", fake_run)
-    up = tiling.StencilUpdate(
-        Params(transition_function=CastStorageKernel(kernel),
-               halo_value=halo, n_iterations=16),
-        strip_rows=32, iters_per_pass=16,  # hp=16: sublane-aligned for bf16
-        window_mode="linecache", shift_impl="roll", interpret=False,
-    )
-    up.fallback_to_reference = False
-    with pytest.warns(RuntimeWarning, match="non-32-bit"):
-        up(cast_storage(grid))
-    assert up.resolved_config["window_mode"] == "clamped"
-    assert captured["window_mode"] == "clamped"
-
-
 def test_bf16_storage_through_distributed_mesh():
-    """bf16 storage across the 8-device mesh: the exchange-halo path packs
-    and unpacks bf16 rows/columns with the dtype-dependent sublane multiple
-    (16 for bf16 — ADVICE r3 #4), and results track the f32 oracle."""
+    """bf16 storage across the 8-device mesh: the halo exchange moves bf16
+    rows and columns, and results track the f32 oracle."""
     grid, kernel, halo = _jacobi()
     n = 4
     ref = create_update(
@@ -199,7 +118,6 @@ def test_bf16_storage_through_distributed_mesh():
                n_iterations=n, blocking=True),
         backend="distributed", iters_per_pass=2,
     )
-    up.fallback_to_reference = False
     out = up(cast_storage(grid))
     assert out.arrays.dtype == jnp.bfloat16
     np.testing.assert_allclose(
@@ -208,55 +126,13 @@ def test_bf16_storage_through_distributed_mesh():
     )
 
 
-def test_cast_wrapper_preserves_invariant_passthrough():
-    """A field the inner kernel passes through unchanged (hotspot's power
-    plane: ``return HotspotCell(temp=..., power=center.power)``) must stay
-    loop-INVARIANT under CastStorageKernel. Without the tap-memo +
-    identity-restoration in the wrapper, the upcast->downcast round-trip
-    made the output var differ from the input var, defeating
-    invariant-field elision — measured on v5e round 4 as hotspot bf16
-    running 0.825x of f32 (the power plane was re-written every
-    sub-step)."""
-    import jax
-
-    from stencilstream_tpu.bench.model import count_vector_ops, invariant_fields
-    from stencilstream_tpu.models.hotspot import HotspotCell, derive_coefficients
-
-    hs = derive_coefficients(64, 64)
-    halo = HotspotCell(temp=jnp.float32(0), power=jnp.float32(0))
-    wrapped = CastStorageKernel(hs)
-    cell_bf = HotspotCell(temp=jnp.zeros((), jnp.bfloat16),
-                          power=jnp.zeros((), jnp.bfloat16))
-    kw = dict(radius=1, n_subiterations=1)
-    assert invariant_fields(wrapped, cell_bf, halo, **kw) == [False, True]
-
-    # Dtype-weighted op count: bf16 window ops charge 0.5 issue slots
-    # (packed 16-bit lanes), converts are fused/free — the bf16-storage
-    # kernel must count FEWER slots than its f32 twin, matching the
-    # measured jacobi bf16 1.22x (13 -> 11 slots).
-    cell_f32 = HotspotCell(temp=jnp.zeros((), jnp.float32),
-                           power=jnp.zeros((), jnp.float32))
-    f32_ops = count_vector_ops(hs, cell_f32, halo, **kw)
-    bf16_ops = count_vector_ops(wrapped, cell_bf, halo, **kw)
-    assert bf16_ops < f32_ops
-
-    from stencilstream_tpu.models import jacobi
-
-    jt = jacobi.make_kernel("jacobi5_general", [0.15, 0.2, 0.25, 0.1, 0.3])
-    assert count_vector_ops(jt, jnp.zeros((), jnp.float32),
-                            jnp.float32(0), **kw) == 13.0
-    assert count_vector_ops(CastStorageKernel(jt),
-                            jnp.zeros((), jnp.bfloat16),
-                            jnp.float32(0), **kw) == 11.0
-
-
 def test_fp8_storage_through_tiling():
-    """float8_e4m3 storage (STATUS r3 next-round candidate): the
-    storage_cast machinery is dtype-parametric, so fp8 rides the same
-    wrapper — 1-byte cells quarter the per-pass HBM bytes. Numerics: 3
-    mantissa bits round each stored iteration to ~1 significant decimal
-    digit; the tolerance contract is correspondingly loose (bandwidth-
-    bound throughput studies, not convergence-critical runs)."""
+    """float8_e4m3 storage: the storage_cast machinery is dtype-parametric,
+    so fp8 rides the same wrapper — 1-byte cells quarter the bytes per
+    iteration. Numerics: 3 mantissa bits round each stored iteration to ~1
+    significant decimal digit; the tolerance contract is correspondingly
+    loose (bandwidth-bound throughput studies, not convergence-critical
+    runs)."""
     grid, kernel, halo = _jacobi()
     f8 = jnp.float8_e4m3fn
     n = 4
@@ -268,8 +144,7 @@ def test_fp8_storage_through_tiling():
     up = create_update(
         Params(transition_function=CastStorageKernel(kernel, f8),
                halo_value=halo, n_iterations=n, blocking=True),
-        backend="tiling", strip_rows=32, iters_per_pass=2, interpret=True)
-    up.fallback_to_reference = False
+        backend="distributed", iters_per_pass=2)
     out = up(cast_storage(grid, f8))
     assert out.arrays.dtype == f8
     np.testing.assert_allclose(

@@ -1,6 +1,6 @@
-"""The reference's host-loop usage patterns on the Pallas/distributed
-backends (SURVEY.md §2.8): resume via iteration_offset, param mutation
-without recompilation, and two updaters alternating on one grid."""
+"""The reference's host-loop usage patterns on every backend (SURVEY.md
+§2.8): resume via iteration_offset, param mutation without recompilation,
+and two updaters alternating on one grid."""
 
 import numpy as np
 import pytest
@@ -11,12 +11,20 @@ from stencilstream_tpu.core import Params
 from stencilstream_tpu.backends import create_update
 from stencilstream_tpu.models import jacobi
 
-from probe import ProbeTransFunc, check_probe_grid, make_probe_grid, probe_halo_cell
+from probe import (
+    ProbeTransFunc,
+    backend_kwargs,
+    check_probe_grid,
+    make_probe_grid,
+    probe_halo_cell,
+)
 
 BACKENDS = [
-    ("monotile", {}),
-    ("tiling", dict(strip_rows=8, iters_per_pass=2)),
-    ("distributed", dict(iters_per_pass=2)),
+    ("reference", {}),
+    # 2-D mesh, p=3: the 3 + 3 resume split and n=2 both end mid-pass.
+    ("distributed", dict(mesh_shape=(2, 4), iters_per_pass=3)),
+    ("auto", {}),
+    # Partial lap: n < 8 devices * p.
     ("ring", dict(iters_per_pass=1, chunk_rows=8)),
 ]
 
@@ -32,7 +40,7 @@ def test_snapshot_resume_equals_one_shot(backend, kw):
             n_iterations=6,
         ),
         backend=backend,
-        **kw,
+        **backend_kwargs(kw),
     )
     out_one = one(make_probe_grid(10, 13))
     check_probe_grid(out_one, 6)
@@ -44,7 +52,7 @@ def test_snapshot_resume_equals_one_shot(backend, kw):
             n_iterations=3,
         ),
         backend=backend,
-        **kw,
+        **backend_kwargs(kw),
     )
     mid = split(make_probe_grid(10, 13))
     split.get_params().iteration_offset = 3
@@ -66,7 +74,7 @@ def test_param_mutation_no_recompile(backend, kw):
     up = create_update(
         Params(transition_function=kernel, n_iterations=2, blocking=True),
         backend=backend,
-        **kw,
+        **backend_kwargs(kw),
     )
 
     out_half = up(grid).to_numpy()
@@ -101,7 +109,7 @@ def test_two_updaters_alternate_on_one_grid(backend, kw):
             blocking=True,
         ),
         backend=backend,
-        **kw,
+        **backend_kwargs(kw),
     )
     avg = create_update(
         Params(
@@ -110,7 +118,7 @@ def test_two_updaters_alternate_on_one_grid(backend, kw):
             blocking=True,
         ),
         backend=backend,
-        **kw,
+        **backend_kwargs(kw),
     )
     grid = jacobi.init_grid(16, 16)
     g = scale(grid)
